@@ -1,5 +1,6 @@
 """Shared model substrate (port of ``repro.models.common``): the
-parameter initializer, RMSNorm, RoPE, SwiGLU and the embedding gather.
+parameter initializer, RMSNorm, RoPE, SwiGLU, the embedding gather and
+the training loss (cross-entropy + max-z).
 
 Parameters are plain nested dicts of tensors with the JAX package's
 layout (stacked ``(L, ...)`` layers, ``x @ W`` weight orientation), so
@@ -62,3 +63,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return F.embedding(ids.long(), table)
+
+
+def cross_entropy_max_z(logits: torch.Tensor, targets: torch.Tensor,
+                        mask: torch.Tensor | None = None,
+                        z_weight: float = 2e-4):
+    """CE + auxiliary max-z loss (paper: Yang et al. 2023, weight 2e-4).
+
+    logits: (..., V), upcast to fp32; targets int ids; mask 0/1.
+    Returns (loss, metrics dict)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    ce = lse - ll
+    z = z_weight * lse * lse
+    tok = ce + z
+    if mask is None:
+        mask = torch.ones(tok.shape, dtype=torch.float32, device=tok.device)
+    mask = mask.float()
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    loss = (tok * mask).sum() / denom
+    ce_mean = (ce * mask).sum() / denom
+    return loss, {"ce": ce_mean, "z": (z * mask).sum() / denom,
+                  "loss": loss}

@@ -2,6 +2,7 @@
 interface over the model zoo. The port has the dense family so far:
 
   * ``init(seed) -> params``
+  * ``loss(params, batch) -> (loss, metrics)`` (differentiable)
   * ``init_cache(batch_size, shape) -> cache``
   * ``prefill(params, batch, cache) -> (logits, cache)``
   * ``decode(params, token, cache) -> (logits, cache)``
@@ -24,6 +25,7 @@ class ModelDef:
     cfg: ArchConfig
     device: torch.device
     init: Callable[[int], Any]
+    loss: Callable[..., tuple[torch.Tensor, dict]]
     init_cache: Callable[..., Any]
     prefill: Callable[..., tuple[torch.Tensor, Any]]
     decode: Callable[..., tuple[torch.Tensor, Any]]
@@ -33,6 +35,9 @@ def _lm_def(cfg: ArchConfig, device: torch.device) -> ModelDef:
     def init(seed: int):
         gen = torch.Generator(device=device).manual_seed(seed)
         return transformer.init_lm(cfg, gen, device=device)
+
+    def loss(params, batch):
+        return transformer.loss_fn(cfg, params, batch)
 
     def init_cache(batch_size, shape: ShapeConfig):
         return transformer.init_cache(cfg, batch_size, shape.seq_len,
@@ -45,7 +50,7 @@ def _lm_def(cfg: ArchConfig, device: torch.device) -> ModelDef:
     def decode(params, token, cache):
         return transformer.decode_step(cfg, params, token, cache)
 
-    return ModelDef(cfg, device, init, init_cache, prefill, decode)
+    return ModelDef(cfg, device, init, loss, init_cache, prefill, decode)
 
 
 def get_model(cfg: ArchConfig, device="cuda") -> ModelDef:

@@ -1,7 +1,7 @@
 """Decoder-only transformer LM (port of ``repro.models.transformer``,
 dense family): RMSNorm pre-norm blocks, GQA attention with RoPE, SwiGLU
-FFN, optional sliding-window attention, and the serving prefill and
-decode steps.
+FFN, optional sliding-window attention, the training forward and loss
+(under autograd) and the serving prefill and decode steps.
 
 Layers stay stacked (leading ``L`` dim) in the JAX package's layout and
 the layer stack is a Python loop over that dim; KV caches are written in
@@ -108,6 +108,35 @@ def _layer(cfg, p, x, *, positions, layer_cache=None, rolling=False):
                         layer_cache=layer_cache, rolling=rolling)
     x = x + a
     return x + _ffn_block(cfg, p, x), kv
+
+
+# -- training -----------------------------------------------------------------
+
+
+def forward(cfg, params, tokens):
+    """Training/scoring forward -> logits (B, S, V). Plain PyTorch,
+    differentiable (attention is ``attention.attention``). The dense
+    family has no auxiliary loss; VLM frontends and remat are not
+    ported yet."""
+    _check_dense(cfg)
+    x = common.embedding_lookup(params["embed"], tokens)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    for i in range(cfg.n_layers):
+        x, _ = _layer(cfg, layer_params(params, i), x, positions=positions)
+    x = common.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ head
+
+
+def loss_fn(cfg, params, batch):
+    """(loss, metrics) of one batch {"tokens", "targets", "mask"}."""
+    if batch.get("frontend") is not None:
+        raise NotImplementedError("VLM/audio frontends are not ported yet")
+    logits = forward(cfg, params, batch["tokens"])
+    return common.cross_entropy_max_z(logits, batch["targets"],
+                                      batch.get("mask"),
+                                      z_weight=cfg.max_z_weight)
 
 
 # -- serving ------------------------------------------------------------------

@@ -123,7 +123,16 @@ def test_sample_tokens_masks():
 def test_port_imports_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.launch.serve, "
             "repro_torch.serving.engine, repro_torch.kernels.flash_decode, "
-            "repro_torch.convert\n"
+            "repro_torch.convert, repro_torch.launch.train, "
+            "repro_torch.launch.profile_train, "
+            "repro_torch.train.loop, repro_torch.kernels.ref, "
+            "repro_torch.kernels.int8_quant, repro_torch.kernels.ops, "
+            "repro_torch.core.sync_engine, repro_torch.core.ring_reduce, "
+            "repro_torch.core.diloco, repro_torch.core.fault_tolerance, "
+            "repro_torch.core.elastic_mesh, repro_torch.optim.adamw, "
+            "repro_torch.optim.nesterov, repro_torch.optim.schedules, "
+            "repro_torch.data.pipeline, repro_torch.models.common, "
+            "repro_torch.models.transformer, repro_torch.models.registry\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')]\n"
