@@ -10,18 +10,26 @@ Phases, each of which raises on failure (nothing is caught):
 2. build: every CUDA kernel of the ported paths, from the sources in
    this checkout (``src/repro_torch/kernels/csrc``), one nvcc per source;
 3. kernels: each kernel against its plain PyTorch version on the card,
-   at its main path's shapes (flash-decode at the serving shape, the
-   four int8 codec kernels at the training ring's 2 x 378,535,936 fp32
-   hop), with its time, its plain version's time, the time of the
-   nearest PyTorch call (a yardstick the port never calls) and the least
-   time the card could take;
-4. reduced models: the reduced INTELLECT-1 served and trained on the
-   card must agree with the same model on the CPU;
+   at its main path's shapes (flash-decode and paged flash-decode at the
+   serving shape, the four int8 codec kernels at the training ring's
+   2 x 378,535,936 fp32 hop), with its time, its plain version's time,
+   the time of the nearest PyTorch call (a yardstick the port never
+   calls) and the least time the card could take; the paged kernel must
+   also be bitwise equal to the dense one on the gathered view;
+4. reduced models: the reduced INTELLECT-1 served (continuous and paged
+   engines) and trained on the card must agree with the same model on
+   the CPU;
 5. main path, serving: ``repro_torch.launch.serve`` serves INTELLECT-1
    at full width and depth (random weights from a seed) with the
-   continuous and the wave engine; every request must finish with
-   in-vocabulary tokens and flash-decode must launch once per layer per
-   decode step;
+   continuous, the wave and the paged engine; every request must finish
+   with in-vocabulary tokens and the engine's flash-decode kernel (dense
+   or paged) must launch once per layer per decode step, the other
+   never; the paged engine's greedy tokens must equal the continuous
+   engine's with batch-1 admission on the same trace; then the paged
+   engine serves 48 requests with a shared system prompt at the dense
+   engine's KV budget (4 slots x 512 cells) and must hold at least 4x
+   the dense engine's 4 streams, with prefix hits and a copy-on-write
+   fork;
 6. main path, training: ``repro_torch.launch.train`` trains
    internlm2-1.8b at full width, depth cut to 6, two DiLoCo workers, the
    int8 ring, two outer steps; losses must be finite and every codec
@@ -36,6 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -129,20 +138,127 @@ def flash_decode_inputs(b, s_max, hk, g, dh, dtype, lengths, seed):
             torch.tensor(lengths, dtype=torch.int32, device="cuda"))
 
 
-def flash_decode_bound(q, k, length, window) -> tuple[float, str]:
+def flash_decode_bound(q, k, length, window,
+                       extra_bytes: int = 0) -> tuple[float, str]:
     """Least time for this call: the live K/V cells, q and the output
-    moved once, against the QK and PV products done once."""
+    (and ``extra_bytes``, a paged call's block table) moved once,
+    against the QK and PV products done once."""
     from repro_torch.models.attention import decode_valid_mask
     b, _, hq, dh = q.shape
     hk = k.shape[2]
     live = int(decode_valid_mask(length, k.shape[1], window).sum())
     size = q.element_size()
     nbytes = (2 * live * hk * dh * size + 2 * q.numel() * size
-              + length.numel() * 4)
+              + length.numel() * 4 + extra_bytes)
     flops = 4 * live * hq * dh
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def paged_pool(k, v, length, blk, seed):
+    """A dense cache (B, S, Hk, dh) scattered into a PERMUTED pool of
+    B * S / blk + 1 blocks (block 0 = trash, filled with noise); table
+    entries past each slot's live blocks are -1."""
+    b, s, hk, dh = k.shape
+    nb = s // blk
+    gen = torch.Generator().manual_seed(seed)
+    table = (torch.randperm(b * nb, generator=gen) + 1).reshape(b, nb)
+    kp = torch.randn((b * nb + 1, blk, hk, dh), device="cuda").to(k.dtype)
+    vp = torch.randn_like(kp)
+    for i in range(b):
+        kp[table[i]] = k[i].reshape(nb, blk, hk, dh)
+        vp[table[i]] = v[i].reshape(nb, blk, hk, dh)
+        table[i, min(nb, -(-int(length[i]) // blk)):] = -1
+    return kp, vp, table.to(device="cuda", dtype=torch.int32)
+
+
+def check_flash_decode_paged() -> dict:
+    """Kernel 6 at the serving shape: a permuted 129-block pool of
+    16-cell blocks, against its plain version and bitwise against the
+    dense kernel on the gathered view. Library yardstick: the gather
+    (``paged_view``) and SDPA with ``enable_gqa`` timed together; SDPA
+    alone on the gathered view beside it."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models.attention import (PagedKVCache, decode_valid_mask,
+                                              paged_view)
+    cases = [  # (label, B, S_max, Hk, G, dh, dtype, lengths, window, blk)
+        ("serve-bf16", 4, 512, 8, 4, 128, torch.bfloat16, [0, 1, 300, 512],
+         None, 16),
+        ("serve-fp32", 4, 512, 8, 4, 128, torch.float32, [0, 1, 300, 512],
+         None, 16),
+        ("swa-wrap-bf16", 11, 256, 8, 4, 128, torch.bfloat16,
+         list(range(255, 266)), 256, 16),
+    ]
+    result = None
+    for i, (label, b, s, hk, g, dh, dtype, lengths, window, blk) in \
+            enumerate(cases):
+        q, k, v, length = flash_decode_inputs(b, s, hk, g, dh, dtype,
+                                              lengths, seed=10 + i)
+        # an SWA ring that wrapped has every block live
+        kp, vp, table = paged_pool(k, v, [s] * b if window else lengths,
+                                   blk, seed=i)
+        del k, v
+        out = fd.flash_decode_paged(q, kp, vp, table, length, window=window)
+        torch.cuda.synchronize()
+        ref = fd.flash_decode_paged_torch(q, kp, vp, table, length,
+                                          window=window)
+        err = (out.float() - ref.float()).abs().max().item()
+        if not torch.isfinite(out).all() or err > TOL[dtype]:
+            raise AssertionError(f"flash_decode_paged {label}: max |err| "
+                                 f"{err} > {TOL[dtype]}")
+        view = paged_view(PagedKVCache(kp, vp, table, length))
+        dense = fd.flash_decode(q, view.k, view.v, length, window=window)
+        if not torch.equal(out, dense):
+            raise AssertionError(f"flash_decode_paged {label}: not bitwise "
+                                 "equal to flash_decode on the gathered view")
+        if lengths[0] == 0 and out[0].abs().max().item() != 0.0:
+            raise AssertionError(f"flash_decode_paged {label}: empty slot "
+                                 "not 0")
+        log(f"kernel flash_decode_paged {label}: max|err|={err:.3g} "
+            f"(tol {TOL[dtype]}), bitwise equal to flash_decode on the "
+            f"gathered view")
+        if label != "serve-bf16":
+            continue
+        valid = decode_valid_mask(length, s, window)[:, None, None, :]
+        qt = q.transpose(1, 2)
+
+        def library():
+            vw = paged_view(PagedKVCache(kp, vp, table, length))
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, vw.k.transpose(1, 2), vw.v.transpose(1, 2),
+                attn_mask=valid, enable_gqa=True)
+        kt, vt = view.k.transpose(1, 2), view.v.transpose(1, 2)
+
+        def sdpa_only():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=valid, enable_gqa=True)
+        bound, bound_by = flash_decode_bound(q, view.k, length, window,
+                                             extra_bytes=table.numel() * 4)
+        result = {
+            "name": "flash_decode_paged", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+            "replaces": "src/repro/kernels/flash_decode.py:262",
+            "launches": None, "max_abs_err": err,
+            "ms": time_ms(lambda: fd.flash_decode_paged(q, kp, vp, table,
+                                                        length)),
+            "plain_ms": time_ms(lambda: fd.flash_decode_paged_torch(
+                q, kp, vp, table, length)),
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": time_ms(library),
+            "library_sdpa_only_ms": time_ms(sdpa_only),
+            "dense_kernel_ms": time_ms(lambda: fd.flash_decode(
+                q, view.k, view.v, length)),
+            "shape": {"B": b, "S_max": s, "Hk": hk, "G": g, "dh": dh,
+                      "blk": blk, "pool_blocks": kp.shape[0],
+                      "dtype": "bfloat16", "lengths": lengths},
+        }
+        log(f"kernel flash_decode_paged serve-bf16: {result['ms']:.5f} ms, "
+            f"dense kernel on the view {result['dense_kernel_ms']:.5f} ms, "
+            f"bound {bound:.6f} ms, plain {result['plain_ms']:.5f} ms, "
+            f"gather+SDPA {result['library_ms']:.5f} ms, SDPA alone "
+            f"{result['library_sdpa_only_ms']:.5f} ms")
+    return result
 
 
 def check_flash_decode() -> dict:
@@ -236,33 +352,212 @@ def check_reduced_model() -> None:
         " (tol 1e-3)")
 
 
-def serve(engine: str, run: int) -> dict:
+def check_reduced_paged() -> None:
+    """The reduced INTELLECT-1 in fp32 on the paged engine, card (paged
+    kernel) against CPU (its plain version), on a shared-prefix trace
+    with a verbatim repeat: greedy tokens equal, each request's
+    first-token logits within 1e-3, and prefix hits, a copy-on-write
+    fork and chunked-prefill segments on both."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.paging import PagedEngine
+    cfg = get_config("intellect-1").reduced()
+    params = get_model(cfg, "cpu").init(0)
+    rng = np.random.default_rng(0)
+    system = rng.integers(2, cfg.vocab, size=37).astype(np.int32)
+    prompts = [np.concatenate([system, rng.integers(
+        2, cfg.vocab, size=n).astype(np.int32)]) for n in (5, 9, 2)]
+    prompts += [prompts[0].copy(), rng.integers(2, cfg.vocab, size=20)
+                .astype(np.int32)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        eng = PagedEngine(get_model(cfg, dev), to_device(params, dev),
+                          batch_slots=5, max_len=64, decode_chunk=4)
+        firsts, admit = {}, eng._admit_state
+
+        def record(req, slot, logits, firsts=firsts, admit=admit):
+            firsts[req.rid] = logits.float().cpu()
+            admit(req, slot, logits)
+        eng._admit_state = record
+        reqs = [Request(i, p, max_new_tokens=8) for i, p in
+                enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        del eng._admit_state
+        s = eng.perf_summary()
+        if not all(r.done for r in reqs) or not all(
+                s[k] > 0 for k in ("prefix_hits", "cow_forks",
+                                   "paged_extends")):
+            raise AssertionError(f"reduced paged {dev}: {s}")
+        runs[dev] = ([r.out_tokens for r in reqs], firsts, s)
+    (tc, fc, sc), (tg, fg, sg) = runs["cpu"], runs["cuda"]
+    if tg != tc:
+        raise AssertionError(f"reduced paged GPU vs CPU tokens: {tg} vs {tc}")
+    worst = max((fg[r] - fc[r]).abs().max().item() for r in fc)
+    if worst > 1e-3:
+        raise AssertionError(f"reduced paged GPU vs CPU: first-token logits "
+                             f"max|err| {worst}")
+    log(f"reduced intellect-1 fp32 paged GPU vs CPU: tokens equal, "
+        f"first-token max|logit err|={worst:.3g} (tol 1e-3); "
+        f"prefix_hits={sg['prefix_hits']} cow_forks={sg['cow_forks']} "
+        f"paged_extends={sg['paged_extends']}")
+
+
+def check_launches(label, counts, kernel, want) -> int:
+    """``kernel`` launched ``want`` times, the other decode kernel never."""
+    for name, n in counts.items():
+        if n != (want if name == kernel else 0):
+            raise AssertionError(
+                f"{label}: {name} launched {n} times, want "
+                f"{want if name == kernel else 0} ({kernel} = layers x "
+                f"decode steps)")
+    return counts[kernel]
+
+
+def decode_counts() -> dict:
     from repro_torch.kernels import flash_decode as fd
+    return {"flash_decode": fd.flash_decode.launches,
+            "flash_decode_paged": fd.flash_decode_paged.launches}
+
+
+def reset_decode_counts() -> None:
+    from repro_torch.kernels import flash_decode as fd
+    fd.flash_decode.launches = 0
+    fd.flash_decode_paged.launches = 0
+
+
+def serve(engine: str, run: int) -> dict:
     from repro_torch.launch import serve as serve_mod
     argv = SERVE_ARGS + ["--engine", engine]
     torch.cuda.reset_peak_memory_stats()
-    fd.flash_decode.launches = 0
+    reset_decode_counts()
     s = serve_mod.main(argv)
-    launches = fd.flash_decode.launches
+    counts = decode_counts()
     torch.cuda.synchronize()
     if not all(s["done"]) or s["requests"] != 8:
         raise AssertionError(f"{engine}: not every request finished")
     toks = [t for o in s["outputs"] for t in o]
     if not toks or not all(0 <= t < s["padded_vocab"] for t in toks):
         raise AssertionError(f"{engine}: token outside the vocabulary")
-    want = s["n_layers"] * s["decode_steps"]
-    if launches != want:
-        raise AssertionError(f"{engine}: flash_decode launched {launches} "
-                             f"times, want {want} = layers x decode steps")
+    kernel = "flash_decode_paged" if engine == "paged" else "flash_decode"
+    launches = check_launches(engine, counts, kernel,
+                              s["n_layers"] * s["decode_steps"])
+    extra = (f" blocks_peak={s['blocks_peak']}/{s['pool_blocks']}"
+             if engine == "paged" else "")
     log(f"main path {engine} run {run}: tok/s={s['tokens_per_s']:.1f} "
         f"p50={s['latency_p50_s'] * 1e3:.1f}ms "
         f"p95={s['latency_p95_s'] * 1e3:.1f}ms "
         f"decode_steps={s['decode_steps']} launches={launches} "
         f"tokens={s['tokens_out']} wall={s['wall_s']:.3f}s peak_mem="
-        f"{torch.cuda.max_memory_allocated() / 2**30:.1f}GiB")
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f}GiB{extra}")
     s["launches"] = launches
+    gc.collect()
     torch.cuda.empty_cache()
     return s
+
+
+def serve_paged_checks(paged_outputs) -> dict:
+    """Beside the paged main path, on the same weights: (1) the
+    launcher's trace through ContinuousEngine with batch-1 admission
+    must give the paged run's greedy tokens; (2) the paged engine at the
+    dense engine's KV budget (4 slots x 512 cells = 128 blocks of 16 +
+    trash) serves 32 slots: 48 requests of a 48-token system prompt and
+    8 distinct tokens (two repeat an earlier prompt verbatim), 8 new
+    tokens each; concurrency is probed at ``_before_chunk``."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.registry import get_model
+    from repro_torch.serving.engine import Request, make_engine
+    from repro_torch.serving.paging import PagedEngine
+    args = serve_mod.build_parser().parse_args(SERVE_ARGS)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    model = get_model(cfg, args.device)
+    params = model.init(args.seed)
+    out = {}
+    for run in (1, 2):
+        eng = make_engine("continuous", model, params, batch_admit=False,
+                          **serve_mod.engine_kwargs(args))
+        reqs = serve_mod.make_requests(args, cfg.vocab)
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        toks = [list(r.out_tokens) for r in reqs]
+        if toks != paged_outputs:
+            raise AssertionError("paged greedy tokens differ from "
+                                 "ContinuousEngine(batch_admit=False)'s")
+        out["continuous_b1"] = eng.perf_summary()
+        log(f"continuous batch_admit=False run {run}: identical greedy "
+            f"tokens to the paged run; tok/s="
+            f"{out['continuous_b1']['tokens_per_s']:.1f} "
+            f"p50={out['continuous_b1']['latency_p50_s'] * 1e3:.1f}ms "
+            f"p95={out['continuous_b1']['latency_p95_s'] * 1e3:.1f}ms")
+        del eng
+    torch.cuda.empty_cache()
+
+    dense_slots, blk = args.slots, 16
+    budget = dense_slots * args.max_len // blk
+    rng = np.random.default_rng(3)
+    system = rng.integers(2, cfg.vocab, size=48).astype(np.int32)
+    prompts = [np.concatenate([system, rng.integers(
+        2, cfg.vocab, size=8).astype(np.int32)]) for _ in range(48)]
+    prompts[5], prompts[9] = prompts[2].copy(), prompts[3].copy()
+    eng = PagedEngine(model, params, batch_slots=32, max_len=args.max_len,
+                      decode_chunk=args.decode_chunk, block_size=blk,
+                      pool_blocks=budget + 1, seed=args.seed)
+    pool = eng.cache["scan"]
+    pool_bytes = 2 * pool.k.numel() * pool.k.element_size()
+    peak, seam = 0, eng._before_chunk
+
+    def probe():
+        nonlocal peak
+        peak = max(peak, sum(r is not None for r in eng.active))
+        seam()
+    eng._before_chunk = probe
+    reqs = [Request(i, p, max_new_tokens=8) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    reset_decode_counts()
+    eng.run_until_drained()
+    counts = decode_counts()
+    torch.cuda.synchronize()
+    del eng._before_chunk, seam, probe    # no cycle keeps the weights
+    s = eng.perf_summary()
+    launches = check_launches("paged at fixed KV memory", counts,
+                              "flash_decode_paged",
+                              cfg.n_layers * s["decode_steps"])
+    if not all(r.done for r in reqs):
+        raise AssertionError("paged at fixed KV memory: a request did not "
+                             "finish")
+    if (peak < 4 * dense_slots or s["prefix_hit_rate"] <= 0
+            or s["cow_forks"] < 1 or eng.stats["prefills"] >= len(reqs)):
+        raise AssertionError(f"paged at fixed KV memory: peak {peak} "
+                             f"streams (want >= {4 * dense_slots}), {s}")
+    log(f"paged at fixed KV memory ({budget} blocks of {blk} cells = "
+        f"{dense_slots} dense slots x {args.max_len}, pool "
+        f"{pool_bytes / 1e6:.1f} MB): peak {peak} concurrent streams "
+        f"({peak / dense_slots:.1f}x the dense {dense_slots}), "
+        f"prefix_hit_rate={s['prefix_hit_rate']:.3f} "
+        f"prefix_hits={s['prefix_hits']} cow_forks={s['cow_forks']} "
+        f"paged_extends={s['paged_extends']} prefills="
+        f"{eng.stats['prefills']} blocks_peak={s['blocks_peak']} "
+        f"tok/s={s['tokens_per_s']:.1f} p50={s['latency_p50_s'] * 1e3:.1f}ms"
+        f" p95={s['latency_p95_s'] * 1e3:.1f}ms "
+        f"decode_steps={s['decode_steps']} launches={launches}")
+    out["fixed_kv"] = dict(s, peak_streams=peak, pool_bytes=pool_bytes,
+                           prefills=eng.stats["prefills"],
+                           launches=launches)
+    del eng, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def train_hop_shape() -> tuple[int, int]:
@@ -573,24 +868,40 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     smi = environment()
     build()
-    kernels = [check_flash_decode()] + check_int8_codec()
+    kernels = ([check_flash_decode()] + check_int8_codec()
+               + [check_flash_decode_paged()])
     check_reduced_model()
+    check_reduced_paged()
     check_reduced_trainer()
     runs = {}
-    for engine in ("continuous", "wave"):
+    engines = ("continuous", "wave", "paged")
+    for engine in engines:
         for run in (1, 2):          # run 1 also warms the card up
             runs[(engine, run)] = serve(engine, run)
+    for run in (1, 2):
+        if runs[("paged", run)]["outputs"] != runs[("paged", 1)]["outputs"]:
+            raise AssertionError("paged main path: the two runs differ")
+    extra = serve_paged_checks(runs[("paged", 2)]["outputs"])
+    gc.collect()
     kernels[0]["launches"] = runs[("continuous", 2)]["launches"]
-    summary = {e: {k: runs[(e, 2)][k] for k in (
-        "tokens_per_s", "latency_p50_s", "latency_p95_s", "decode_steps",
-        "tokens_out", "wall_s", "launches")} for e in ("continuous", "wave")}
+    kernels[5]["launches"] = runs[("paged", 2)]["launches"]
+    keys = ("tokens_per_s", "latency_p50_s", "latency_p95_s",
+            "decode_steps", "tokens_out", "wall_s")
+    summary = {e: {k: runs[(e, 2)][k] for k in keys + ("launches",)}
+               for e in engines}
+    summary["continuous_batch_admit_false"] = {
+        k: extra["continuous_b1"][k] for k in keys}
+    summary["paged_fixed_kv"] = {k: extra["fixed_kv"][k] for k in keys + (
+        "launches", "peak_streams", "prefix_hit_rate", "prefix_hits",
+        "cow_forks", "paged_extends", "prefills", "blocks_peak",
+        "pool_bytes")}
     log(f"serve: {json.dumps(summary)}")
     train = train_main_path()
-    for entry in kernels[1:]:
+    for entry in kernels[1:5]:
         entry["launches"] = train["launches"][entry["name"]]
     last = train["history"][-1]
     codec_ms = sum(e["ms"] * train["per_sync"][e["name"]]
-                   for e in kernels[1:])
+                   for e in kernels[1:5])
     log(f"train: outer step {last['outer_step']}: inner phase "
         f"{last['inner_s'] * 1e3:.1f} ms, outer sync "
         f"{last['sync_s'] * 1e3:.1f} ms, codec kernels "

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import KVCache, PagedKVCache
 
 
 def to_tensor(a, device="cuda", dtype: torch.dtype | None = None
@@ -37,10 +37,22 @@ def from_jax_params(tree, device="cuda", dtype: torch.dtype | None = None):
 
 def from_jax_cache(cache, device="cuda") -> dict:
     """``repro`` cache ``{"scan": KVCache, "prefix": [KVCache, ...]}``
-    with numpy leaves (anything with ``k``, ``v`` and ``length``) -> the
-    port's cache on ``device``."""
+    with numpy leaves (anything with ``k``, ``v`` and ``length``, plus
+    ``table`` for a ``PagedKVCache``) -> the port's cache on
+    ``device``. A stacked paged leaf's (L, B, nb) table, which the JAX
+    package broadcasts over layers, becomes the port's one (B, nb)
+    table; its layers must agree."""
     def one(c):
-        return KVCache(to_tensor(c.k, device), to_tensor(c.v, device),
-                       to_tensor(c.length, device))
+        k, v = to_tensor(c.k, device), to_tensor(c.v, device)
+        length = to_tensor(c.length, device)
+        if not hasattr(c, "table"):
+            return KVCache(k, v, length)
+        table = to_tensor(c.table, device)
+        if table.dim() == 3:
+            if not bool((table == table[:1]).all()):
+                raise ValueError("paged cache: per-layer block tables "
+                                 "differ; the port shares one table")
+            table = table[0].contiguous()
+        return PagedKVCache(k, v, table, length)
     return {"scan": one(cache["scan"]),
             "prefix": [one(c) for c in cache["prefix"]]}

@@ -1,9 +1,15 @@
 // Flash-decode for Hopper (sm_90a): grouped-query single-token attention
-// of q (B, 1, Hq, dh) against a dense per-slot KV cache (B, S_max, Hk, dh)
-// masked by per-slot lengths and, optionally, a sliding-window ring.
+// of q (B, 1, Hq, dh) against a per-slot KV cache masked by per-slot
+// lengths and, optionally, a sliding-window ring. The cache is either
+//   * dense: (B, S_max, Hk, dh), or
+//   * paged: a physical block pool (N_blocks, blk, Hk, dh) read through a
+//     (B, nb) block table; virtual cell c of slot b lives in pool block
+//     max(table[b, c / blk], 0) at row c % blk (a -1 entry, or one past
+//     the pool, reads trash block 0), and S_max = nb * blk.
 //
-// Replaces the Pallas TPU kernel repro/kernels/flash_decode.py::flash_decode
-// (body `_body`, call `_flash_decode_call`).
+// Replaces the Pallas TPU kernels repro/kernels/flash_decode.py::
+// flash_decode (body `_body`, call `_flash_decode_call`) and
+// flash_decode_paged (body `_paged_body`, call `_flash_decode_paged_call`).
 //
 // What bounds it: the K and V bytes of the live cells, each read once.
 // At B=4, 512 live cells, Hk=8, dh=128 in bf16 that is 8.4 MB per layer,
@@ -27,6 +33,15 @@
 //     empty slot comes back exactly 0, and writes q's dtype.
 // The scale dh^-0.5 is applied to the fp32 score after the dot, and query
 // head h reads kv head h / G, as on the TPU.
+//
+// Paged. The split kernel is templated on how a cell's K/V row is
+// addressed and nothing else: a paged block first loads the table entries
+// its 32 cells touch (at most 32 / blk + 1) into shared memory, then runs
+// the dense block's code with the row offset taken from them (64-bit).
+// Masks come from the virtual cell, as in the dense kernel. With one
+// accumulation order the paged kernel is bitwise equal to the dense kernel
+// on the gathered view, for any block size. The table's bytes are
+// negligible beside the K/V rows, so the bound is the dense kernel's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,16 +96,31 @@ __device__ __forceinline__ bool live(int cell, int length, int s_max,
   return abs_pos < length && abs_pos >= length - window;
 }
 
+// Where a cell's K/V row starts, in rows of Hk * dh elements from the
+// cache's (pool's) base. Dense: slot b's cell. Paged: the cell's pool
+// block, from the split's table entries in shared memory (first = the
+// split's first virtual block).
+template <bool kPaged>
+__device__ __forceinline__ size_t cell_row(int b, int cell, int s_max,
+                                           int blk, int first,
+                                           const int* tbl_s) {
+  if constexpr (kPaged)
+    return (size_t)tbl_s[cell / blk - first] * blk + cell % blk;
+  else
+    return (size_t)b * s_max + cell;
+}
+
 // One block per (split, kv head, slot). LPC lanes share a cell, each lane
 // holding one 8-element chunk of the cell's K and V rows (LPC = the power of
 // two >= dh / 8); a warp covers 32 / LPC cells per pass. Every K and V load
 // of the block is issued before any is used, so the block waits for memory
-// about once.
-template <typename T, int LPC>
+// about once. kPaged selects the row addressing (cell_row).
+template <typename T, int LPC, bool kPaged>
 __global__ void __launch_bounds__(kThreads) split_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int* __restrict__ length,
-    float* __restrict__ part_acc, float* __restrict__ part_ml, int s_max,
+    const int* __restrict__ table, float* __restrict__ part_acc,
+    float* __restrict__ part_ml, int s_max, int blk, int n_blocks,
     int hk_n, int g_n, int dh, int window, float scale) {
   constexpr int kCpw = 32 / LPC;                    // cells per warp per pass
   constexpr int kGroups = kWarps * kCpw;            // cells per pass
@@ -99,6 +129,7 @@ __global__ void __launch_bounds__(kThreads) split_kernel(
   float* q_s = smem;                    // (G, dh) query rows, fp32
   float* p_s = q_s + g_n * dh;          // (G, kCells) scores, then probs
   __shared__ int live_s[kCells];
+  __shared__ int tbl_s[kCells];                // paged: the split's blocks
   __shared__ float red_s[kGroups * LPC * 8];   // one head's per-group sums
 
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
@@ -109,6 +140,16 @@ __global__ void __launch_bounds__(kThreads) split_kernel(
   float* acc_out = part_acc + part * dh;
   float* ml_out = part_ml + part * 2;
 
+  // paged: the table entries of virtual blocks first .. last, loaded once
+  // by the threads that do not test liveness; -1 or out of the pool -> 0
+  const int first = kPaged ? c0 / blk : 0;
+  if constexpr (kPaged) {
+    const int i = threadIdx.x - kCells;
+    if (i >= 0 && i <= (c0 + n_cells - 1) / blk - first) {
+      const int t = table[(size_t)b * (s_max / blk) + first + i];
+      tbl_s[i] = t > 0 && t < n_blocks ? t : 0;
+    }
+  }
   int mine = 0;
   if (threadIdx.x < kCells) {
     mine = threadIdx.x < n_cells && live(c0 + threadIdx.x, len, s_max, window);
@@ -127,15 +168,17 @@ __global__ void __launch_bounds__(kThreads) split_kernel(
   const int group = warp * kCpw + lane / LPC, sl = lane % LPC;
   const bool chunk = sl < dh / 8;       // this lane holds channels sl*8..+8
   const size_t row = (size_t)hk_n * dh;          // elements between cells
-  const T* k_b = k + ((size_t)b * s_max * hk_n + hk) * dh + sl * 8;
-  const T* v_b = v + ((size_t)b * s_max * hk_n + hk) * dh + sl * 8;
+  const T* k_h = k + (size_t)hk * dh + sl * 8;
+  const T* v_h = v + (size_t)hk * dh + sl * 8;
   float kf[kPasses][8], vf[kPasses][8];
 #pragma unroll
   for (int p = 0; p < kPasses; ++p) {
     const int c = p * kGroups + group;
     if (chunk && c < n_cells && live_s[c]) {
-      load8(k_b + (size_t)(c0 + c) * row, kf[p]);
-      load8(v_b + (size_t)(c0 + c) * row, vf[p]);
+      const size_t off =
+          cell_row<kPaged>(b, c0 + c, s_max, blk, first, tbl_s) * row;
+      load8(k_h + off, kf[p]);
+      load8(v_h + off, vf[p]);
     } else {
 #pragma unroll
       for (int j = 0; j < 8; ++j) kf[p][j] = vf[p][j] = 0.f;
@@ -244,22 +287,28 @@ __global__ void combine_kernel(const float* __restrict__ part_acc,
   }
 }
 
+// table == nullptr: dense cache with s_max cells per slot. Otherwise a
+// pool of n_blocks blocks of blk cells and s_max = nb * blk.
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* length,
-           void* part_acc, void* part_ml, void* out, int b, int s_max,
-           int hk_n, int g_n, int dh, int window, float scale,
-           cudaStream_t stream) {
+           const void* table, void* part_acc, void* part_ml, void* out,
+           int b, int s_max, int blk, int n_blocks, int hk_n, int g_n,
+           int dh, int window, float scale, cudaStream_t stream) {
   const int n_splits = (s_max + kCells - 1) / kCells;
   const size_t smem = (size_t)g_n * (dh + kCells) * sizeof(float);
   const dim3 grid(n_splits, hk_n, b);
   int lpc = 1;
   while (lpc * 8 < dh) lpc <<= 1;       // lanes per cell (dh <= 256: <= 32)
-#define FLASH_DECODE_SPLIT(LPC)                                              \
-  split_kernel<T, LPC><<<grid, kThreads, smem, stream>>>(                    \
+#define FLASH_DECODE_SPLIT_PAGED(LPC, PAGED)                                 \
+  split_kernel<T, LPC, PAGED><<<grid, kThreads, smem, stream>>>(             \
       static_cast<const T*>(q), static_cast<const T*>(k),                    \
       static_cast<const T*>(v), static_cast<const int*>(length),             \
-      static_cast<float*>(part_acc), static_cast<float*>(part_ml), s_max,    \
-      hk_n, g_n, dh, window, scale)
+      static_cast<const int*>(table), static_cast<float*>(part_acc),         \
+      static_cast<float*>(part_ml), s_max, blk, n_blocks, hk_n, g_n, dh,     \
+      window, scale)
+#define FLASH_DECODE_SPLIT(LPC)                                              \
+  if (table) FLASH_DECODE_SPLIT_PAGED(LPC, true);                            \
+  else FLASH_DECODE_SPLIT_PAGED(LPC, false)
   switch (lpc) {
     case 1: FLASH_DECODE_SPLIT(1); break;
     case 2: FLASH_DECODE_SPLIT(2); break;
@@ -269,6 +318,7 @@ int launch(const void* q, const void* k, const void* v, const void* length,
     default: FLASH_DECODE_SPLIT(32); break;
   }
 #undef FLASH_DECODE_SPLIT
+#undef FLASH_DECODE_SPLIT_PAGED
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int threads = ((dh + 31) / 32) * 32;
@@ -296,10 +346,31 @@ int flash_decode_launch(const void* q, const void* k, const void* v,
                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, length, part_acc, part_ml, out, b,
-                                 s_max, hk_n, g_n, dh, window, scale, st);
-  return launch<float>(q, k, v, length, part_acc, part_ml, out, b, s_max,
-                       hk_n, g_n, dh, window, scale, st);
+    return launch<__nv_bfloat16>(q, k, v, length, nullptr, part_acc, part_ml,
+                                 out, b, s_max, 1, 0, hk_n, g_n, dh, window,
+                                 scale, st);
+  return launch<float>(q, k, v, length, nullptr, part_acc, part_ml, out, b,
+                       s_max, 1, 0, hk_n, g_n, dh, window, scale, st);
+}
+
+// The paged cache: k_pool/v_pool (N_blocks, blk, Hk, dh) contiguous,
+// table (B, nb) int32 contiguous (-1 = unmapped); everything else as for
+// flash_decode_launch, with n_splits over S_max = nb * blk cells.
+int flash_decode_paged_launch(const void* q, const void* k_pool,
+                              const void* v_pool, const void* table,
+                              const void* length, void* part_acc,
+                              void* part_ml, void* out, int b, int nb,
+                              int blk, int n_blocks, int hk_n, int g_n,
+                              int dh, int window, float scale, int is_bf16,
+                              void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch<__nv_bfloat16>(q, k_pool, v_pool, length, table, part_acc,
+                                 part_ml, out, b, nb * blk, blk, n_blocks,
+                                 hk_n, g_n, dh, window, scale, st);
+  return launch<float>(q, k_pool, v_pool, length, table, part_acc, part_ml,
+                       out, b, nb * blk, blk, n_blocks, hk_n, g_n, dh, window,
+                       scale, st);
 }
 
 }  // extern "C"

@@ -5,7 +5,10 @@
       --arch intellect-1 --slots 4 --prompt-len 64 --max-len 512
 
 It prefills ``--slots`` random prompts (random weights from ``--seed``),
-then runs greedy decode steps: 3 untimed, 8 timed with the host clock
+with ``--block-size N`` copies the cache into a paged pool of N-cell
+blocks (the paged engine's cache: decode then writes through the block
+table and reads through the paged flash-decode kernel), then runs greedy
+decode steps: 3 untimed, 8 timed with the host clock
 around work that ends in a synchronize, and 8 more under the profiler.
 It prints the step time, the
 device's busy share of the profiled wall time, kernel launches per step,
@@ -28,6 +31,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--max-len", type=int, default=512)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--block-size", type=int, default=None,
+                    help="decode on a paged cache of this block size")
     args = ap.parse_args(argv)
 
     import torch
@@ -50,6 +55,8 @@ def main(argv=None) -> dict:
     logits, cache = model.prefill(params, {"tokens": prompts},
                                   model.init_cache(args.slots, shape))
     tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+    if args.block_size:
+        cache = _paged_copy(model, cache, args.slots, shape, args.block_size)
 
     def steps(n):
         nonlocal tok, cache
@@ -86,6 +93,7 @@ def main(argv=None) -> dict:
     fd_calls = max((e.count for e in fd), default=0)
     out = {
         "arch": cfg.name, "slots": args.slots, "cache_len": args.prompt_len,
+        "block_size": args.block_size,
         "device": torch.cuda.get_device_name(0),
         "step_ms": step_ms,
         "profiled_step_ms": wall_ms / STEPS,
@@ -98,7 +106,8 @@ def main(argv=None) -> dict:
         "top_kernels": [{"name": e.key[:80], "count": e.count,
                          "device_ms": dev_us(e) / 1e3} for e in top],
     }
-    print(f"{cfg.name} decode B={args.slots}: {step_ms:.2f} ms/step "
+    paged = f" paged blk={args.block_size}" if args.block_size else ""
+    print(f"{cfg.name} decode B={args.slots}{paged}: {step_ms:.2f} ms/step "
           f"(host clock), device busy {out['device_busy_ms_per_step']:.2f} "
           f"ms/step = {100 * (out['device_busy_share'] or 0):.1f}% of the "
           f"profiled wall, {out['kernel_launches_per_step']:.0f} kernel "
@@ -107,6 +116,25 @@ def main(argv=None) -> dict:
         print(f"  {t['device_ms']:9.3f} ms  x{t['count']:<6} {t['name']}")
     print(json.dumps(out))
     return out
+
+
+def _paged_copy(model, cache, slots, shape, blk):
+    """The dense cache's contents in a paged pool: slot b's virtual
+    block i is pool block 1 + b * nb + i (block 0 is trash)."""
+    import torch
+
+    from repro_torch.serving.paging import build_paged_cache
+    paged, nb, _ = build_paged_cache(model, slots, shape, block_size=blk)
+    dense, pool = cache["scan"], paged["scan"]
+    n_layers = pool.k.shape[0]
+    pool.k[:, 1:].view(n_layers, slots, nb * blk, *pool.k.shape[3:]).copy_(
+        dense.k)
+    pool.v[:, 1:].view(n_layers, slots, nb * blk, *pool.v.shape[3:]).copy_(
+        dense.v)
+    pool.table.copy_(torch.arange(1, slots * nb + 1, dtype=torch.int32,
+                                  device=pool.table.device).view(slots, nb))
+    pool.length.copy_(dense.length)
+    return paged
 
 
 if __name__ == "__main__":

@@ -1,17 +1,19 @@
 """Serving launcher (port of ``repro.launch.serve``): batched generation
-with the wave or continuous engine, with tokens/sec and request-latency
-percentiles at exit.
+with the wave, continuous or paged engine, with tokens/sec and
+request-latency percentiles at exit (and, for the paged engine, its
+block-pool and prefix-sharing counters).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch intellect-1 \
       --engine continuous --slots 4 --requests 8 --max-new 32
 
 It runs on the GPU (``--device cuda``, the default), where decode
-attention goes through the hand-written flash-decode kernel;
+attention goes through the hand-written flash-decode kernel (its paged
+variant with ``--engine paged --block-size 16 --pool-blocks N``);
 ``--device cpu`` runs the same path with the kernel's plain PyTorch
 version. ``--attn-impl`` is accepted for command-line parity with
 ``repro.launch.serve`` and sets ``decode_attn_impl`` on the config; the
-port picks the kernel from the device. The paged engine and ``--swarm``
-are not ported yet and raise.
+port picks the kernel from the device. ``--swarm`` is not ported yet
+and raises.
 """
 from __future__ import annotations
 
@@ -53,6 +55,36 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def engine_kwargs(args) -> dict:
+    """The engine's keyword arguments from the parsed flags."""
+    kw = dict(batch_slots=args.slots, max_len=args.max_len,
+              bucket_prompts=not args.no_bucket,
+              decode_chunk=args.decode_chunk, top_k=args.top_k,
+              top_p=args.top_p, seed=args.seed)
+    if args.engine == "paged":
+        kw.update(block_size=args.block_size, pool_blocks=args.pool_blocks)
+    return kw
+
+
+def make_requests(args, vocab: int) -> list:
+    """The launcher's request trace: ``args.requests`` random prompts of
+    ``prompt_len // 2`` to ``prompt_len`` tokens, from ``args.seed``."""
+    import numpy as np
+
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(args.seed)
+    reqs = []
+    for i in range(args.requests):
+        plen = max(1, int(rng.integers(args.prompt_len // 2,
+                                       args.prompt_len + 1)))
+        reqs.append(Request(
+            rid=i,
+            prompt=rng.integers(2, vocab, size=plen).astype(np.int32),
+            max_new_tokens=args.max_new,
+            temperature=args.temperature))
+    return reqs
+
+
 def main(argv=None) -> dict:
     """Parse ``argv``, serve, print the exit summary and return it."""
     ap = build_parser()
@@ -64,12 +96,11 @@ def main(argv=None) -> dict:
         raise NotImplementedError("--swarm is not ported yet (swarm "
                                   "serving is a later slice)")
 
-    import numpy as np
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models.registry import get_model
-    from repro_torch.serving.engine import Request, make_engine
+    from repro_torch.serving.engine import make_engine
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is visible; "
@@ -81,21 +112,8 @@ def main(argv=None) -> dict:
         cfg = dataclasses.replace(cfg, decode_attn_impl=args.attn_impl)
     model = get_model(cfg, args.device)
     params = model.init(args.seed)
-    engine_kw = dict(batch_slots=args.slots, max_len=args.max_len,
-                     bucket_prompts=not args.no_bucket,
-                     decode_chunk=args.decode_chunk,
-                     top_k=args.top_k, top_p=args.top_p, seed=args.seed)
-    engine = make_engine(args.engine, model, params, **engine_kw)
-    rng = np.random.default_rng(args.seed)
-    reqs = []
-    for i in range(args.requests):
-        plen = max(1, int(rng.integers(args.prompt_len // 2,
-                                       args.prompt_len + 1)))
-        reqs.append(Request(
-            rid=i,
-            prompt=rng.integers(2, cfg.vocab, size=plen).astype(np.int32),
-            max_new_tokens=args.max_new,
-            temperature=args.temperature))
+    engine = make_engine(args.engine, model, params, **engine_kwargs(args))
+    reqs = make_requests(args, cfg.vocab)
     for r in reqs:
         engine.submit(r)
     engine.run_until_drained()
@@ -108,6 +126,12 @@ def main(argv=None) -> dict:
           f"occupancy={s['slot_occupancy']:.2f} "
           f"host_syncs={s['host_syncs']} "
           f"prefill_widths={s['prefill_widths']}")
+    if args.engine == "paged":
+        print(f"block_size={s['block_size']} "
+              f"blocks_peak={s['blocks_peak']}/{s['pool_blocks']} "
+              f"prefix_hit_rate={s['prefix_hit_rate']:.2f} "
+              f"cow_forks={s['cow_forks']} "
+              f"paged_extends={s['paged_extends']}")
     s["outputs"] = [list(r.out_tokens) for r in reqs]
     s["done"] = [r.done for r in reqs]
     s["padded_vocab"] = cfg.padded_vocab

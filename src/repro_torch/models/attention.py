@@ -1,11 +1,13 @@
-"""Attention (port of ``repro.models.attention``, dense caches): GQA
-prefill attention, the per-slot KV cache, its write cursor and the
-single-token decode attention.
+"""Attention (port of ``repro.models.attention``): GQA prefill
+attention, the per-slot KV cache (dense, or paged through a block
+table), its write cursor and the single-token decode attention.
 
 K/V stay (B, S, Hk, dh) and Q is viewed as (B, T, Hk, G, dh), as in the
 JAX package: KV is never expanded to Hq heads. Unlike the JAX package,
-``cache_update`` writes in place; callers that reuse a cache must hand
-in a fresh one (see ``serving.engine``).
+``cache_update`` writes in place; callers that reuse a dense cache must
+hand in a fresh one (see ``serving.engine``), and a paged cache's pool
+is shared by every slot, so its writes land where the slot's table
+says (``serving.paging`` keeps the tables).
 """
 from __future__ import annotations
 
@@ -37,6 +39,86 @@ class KVCache:
 
     def layer(self, i: int) -> "KVCache":
         return KVCache(self.k[i], self.v[i], self.length[i])
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Block-table KV cache: one physical block pool shared by all
+    slots, indexed per slot through a block table.
+
+    Virtual cell ``c`` of slot ``b`` lives at physical cell
+    ``(table[b, c // blk], c % blk)``. Physical block 0 is a reserved
+    TRASH block, never mapped by a table, so writes past a slot's
+    allocation (done slots padding out a decode chunk, pad tails of a
+    prefill segment) land harmlessly; ``-1`` entries mean "unmapped"
+    and read and write the trash block. Allocation and refcounts are
+    host-side (``serving.paging.BlockPool``).
+
+    One layer's: k/v (N_blocks, blk, Hk, dh), table (B, nb), length
+    (B,). Stacked (``serving.paging.build_paged_cache``): k/v (L,
+    N_blocks, blk, Hk, dh), length (L, B) and ONE (B, nb) table that
+    every layer shares (the JAX package broadcasts it to (L, B, nb));
+    ``layer(l)`` returns views."""
+    k: torch.Tensor
+    v: torch.Tensor
+    table: torch.Tensor       # int32 block ids, -1 = unmapped
+    length: torch.Tensor      # int32 — tokens written PER SLOT (absolute)
+
+    def layer(self, i: int) -> "PagedKVCache":
+        return PagedKVCache(self.k[i], self.v[i], self.table, self.length[i])
+
+    @property
+    def block_size(self) -> int:
+        return self.k.shape[-3]
+
+    @property
+    def s_max(self) -> int:
+        """Virtual per-slot capacity in cells."""
+        return self.table.shape[-1] * self.k.shape[-3]
+
+
+def paged_view(cache: PagedKVCache) -> KVCache:
+    """Gather one layer's pool through the table into the dense
+    per-slot view (B, nb * blk, Hk, dh): cell for cell the dense cache
+    of the same virtual capacity (unmapped blocks read the trash block,
+    and those cells are masked by ``length`` downstream)."""
+    tbl = cache.table.clamp_min(0).long()             # (B, nb)
+    b = tbl.shape[0]
+    k = cache.k[tbl].reshape(b, -1, *cache.k.shape[2:])
+    v = cache.v[tbl].reshape(b, -1, *cache.v.shape[2:])
+    return KVCache(k, v, cache.length)
+
+
+def paged_cache_update(cache: PagedKVCache, k_new: torch.Tensor,
+                       v_new: torch.Tensor, *,
+                       rolling: bool = False) -> PagedKVCache:
+    """Append S_new tokens through the block table, IN PLACE.
+
+    The dense ``cache_update``'s per-slot write cursor (start at
+    ``length``; SWA wraps mod the virtual ring size), scattered to
+    (table[slot, cell // blk], cell % blk). Cells past the virtual
+    capacity or on an unmapped (-1) entry go to trash block 0 (no clamp
+    of the start, unlike the dense cache); duplicate trash cells are
+    the only collisions and are never read. Returns the same (mutated)
+    cache."""
+    blk = cache.block_size
+    nb = cache.table.shape[1]
+    s_max = nb * blk
+    s_new = k_new.shape[1]
+    start = cache.length % s_max if rolling else cache.length      # (B,)
+    cells = start.long()[:, None] + torch.arange(s_new,
+                                                 device=start.device)
+    if rolling:
+        cells = cells % s_max
+    live = cells < s_max
+    bi = (cells // blk).clamp(0, nb - 1)
+    phys = torch.gather(cache.table, 1, bi).long()                 # (B, S)
+    phys = torch.where(live & (phys >= 0), phys, 0)
+    off = torch.where(live, cells % blk, 0)
+    cache.k[phys, off] = k_new.to(cache.k.dtype)
+    cache.v[phys, off] = v_new.to(cache.v.dtype)
+    cache.length += s_new
+    return cache
 
 
 def _grouped(q: torch.Tensor, n_kv: int) -> torch.Tensor:
@@ -112,28 +194,36 @@ def decode_valid_mask(length: torch.Tensor, s_max: int,
     return (abs_pos < length) & (abs_pos >= length - window)
 
 
-def decode_attention(q: torch.Tensor, cache: KVCache, *,
+def decode_attention(q: torch.Tensor, cache: KVCache | PagedKVCache, *,
                      window: int | None = None) -> torch.Tensor:
     """Single-token grouped attention against the per-slot cache.
 
     q: (B, 1, Hq, dh); ``cache.length`` is (B,), so every slot masks its
     own live prefix. This is the JAX package's ``impl="pallas"`` path:
-    on a CUDA tensor it launches the hand-written flash-decode kernel,
-    on a CPU tensor it runs that kernel's plain PyTorch version."""
+    on a CUDA tensor it launches the hand-written flash-decode kernel
+    (its paged variant for a paged cache, which reads the pool through
+    the table), on a CPU tensor it runs that kernel's plain PyTorch
+    version."""
     from repro_torch.kernels import flash_decode
+    if isinstance(cache, PagedKVCache):
+        return flash_decode.flash_decode_paged(
+            q, cache.k, cache.v, cache.table, cache.length, window=window)
     return flash_decode.flash_decode(q, cache.k, cache.v, cache.length,
                                      window=window)
 
 
-def cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
-                 *, rolling: bool = False) -> KVCache:
+def cache_update(cache: KVCache | PagedKVCache, k_new: torch.Tensor,
+                 v_new: torch.Tensor, *, rolling: bool = False):
     """Append S_new tokens (prefill write or one decode step) IN PLACE.
 
     Each slot writes at its own ``length`` (its write cursor), so a
     freshly prefilled slot can sit next to slots deep into decode; the
     start clamps to ``S_max - S_new`` as JAX's dynamic_update_slice does.
-    Rolling mode wraps the cursor into a window-sized ring. Returns the
-    same (mutated) cache."""
+    Rolling mode wraps the cursor into a window-sized ring. Paged
+    caches dispatch to ``paged_cache_update``. Returns the same
+    (mutated) cache."""
+    if isinstance(cache, PagedKVCache):
+        return paged_cache_update(cache, k_new, v_new, rolling=rolling)
     b, s_max = cache.k.shape[0], cache.k.shape[1]
     s_new = k_new.shape[1]
     start = cache.length % s_max if rolling else cache.length      # (B,)

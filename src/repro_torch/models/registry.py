@@ -6,6 +6,9 @@ interface over the model zoo. The port has the dense family so far:
   * ``init_cache(batch_size, shape) -> cache``
   * ``prefill(params, batch, cache) -> (logits, cache)``
   * ``decode(params, token, cache) -> (logits, cache)``
+  * ``prefill_extend(params, batch, cache) -> (logits, cache)``: one
+    chunked-prefill segment (batch keys ``tokens``, ``start``,
+    ``seg_len``); None for sliding-window models
 
 Every ``ModelDef`` is bound to one device; caches are written in place.
 """
@@ -29,6 +32,7 @@ class ModelDef:
     init_cache: Callable[..., Any]
     prefill: Callable[..., tuple[torch.Tensor, Any]]
     decode: Callable[..., tuple[torch.Tensor, Any]]
+    prefill_extend: Callable[..., tuple[torch.Tensor, Any]] | None = None
 
 
 def _lm_def(cfg: ArchConfig, device: torch.device) -> ModelDef:
@@ -50,7 +54,14 @@ def _lm_def(cfg: ArchConfig, device: torch.device) -> ModelDef:
     def decode(params, token, cache):
         return transformer.decode_step(cfg, params, token, cache)
 
-    return ModelDef(cfg, device, init, loss, init_cache, prefill, decode)
+    def prefill_extend(params, batch, cache):
+        return transformer.prefill_extend(
+            cfg, params, batch["tokens"], cache, start=batch["start"],
+            seg_len=batch["seg_len"])
+
+    return ModelDef(cfg, device, init, loss, init_cache, prefill, decode,
+                    prefill_extend=(None if cfg.sliding_window
+                                    else prefill_extend))
 
 
 def get_model(cfg: ArchConfig, device="cuda") -> ModelDef:

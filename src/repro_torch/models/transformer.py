@@ -1,7 +1,8 @@
 """Decoder-only transformer LM (port of ``repro.models.transformer``,
 dense family): RMSNorm pre-norm blocks, GQA attention with RoPE, SwiGLU
 FFN, optional sliding-window attention, the training forward and loss
-(under autograd) and the serving prefill and decode steps.
+(under autograd) and the serving prefill, chunked prefill
+(``prefill_extend``) and decode steps, on dense or paged caches.
 
 Layers stay stacked (leading ``L`` dim) in the JAX package's layout and
 the layer stack is a Python loop over that dim; KV caches are written in
@@ -76,18 +77,25 @@ def layer_params(params: dict, i: int) -> dict:
 # -- blocks -------------------------------------------------------------------
 
 
-def _attn_block(cfg, p, x, *, positions, layer_cache=None, rolling=False):
-    """Self-attention sublayer -> (out, (k, v)). With a ``layer_cache``
-    and one token this is a decode step: K/V go into the cache in place
-    and attention runs against it (the flash-decode kernel on CUDA)."""
+def _qkv(cfg, p, x, positions):
+    """Pre-norm Q, K, V projections with RoPE: (B, S, H, dh) each."""
     hd = _head_dim(cfg)
     h = common.rms_norm(x, p["ln_attn"], cfg.norm_eps)
     b, s, _ = h.shape
     q = (h @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
     k = (h @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
     v = (h @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
-    q = common.apply_rope(q, positions, cfg.rope_theta)
-    k = common.apply_rope(k, positions, cfg.rope_theta)
+    return (common.apply_rope(q, positions, cfg.rope_theta),
+            common.apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _attn_block(cfg, p, x, *, positions, layer_cache=None, rolling=False):
+    """Self-attention sublayer -> (out, (k, v)). With a ``layer_cache``
+    and one token this is a decode step: K/V go into the cache in place
+    and attention runs against it (the flash-decode kernel on CUDA)."""
+    hd = _head_dim(cfg)
+    b, s, _ = x.shape
+    q, k, v = _qkv(cfg, p, x, positions)
     if layer_cache is not None and s == 1:           # decode
         attn.cache_update(layer_cache, k, v, rolling=rolling)
         o = attn.decode_attention(q, layer_cache, window=cfg.sliding_window)
@@ -215,6 +223,48 @@ def prefill(cfg, params, tokens, cache, *, prompt_len=None):
         idx = (prompt_len.long() - 1)[:, None, None].expand(b, 1, x.shape[-1])
         x_last = torch.gather(x, 1, idx)
     return _head_logits(cfg, params, x_last), cache
+
+
+@torch.no_grad()
+def prefill_extend(cfg, params, tokens, cache, *, start: int, seg_len: int):
+    """Chunked prefill: run one right-padded prompt SEGMENT at absolute
+    offset ``start`` against an already-partial cache, written in place.
+
+    ``tokens``: (B, S) segment; ``start``: absolute position of
+    tokens[:, 0], equal to the cache's per-slot ``length`` (the write
+    cursor); ``seg_len``: true segment length (<= S). Returns
+    (last-token logits (B, V), cache with ``length = start + seg_len``).
+
+    Each layer writes the segment's K/V through ``cache_update`` and
+    every query row attends over the whole live prefix (the paged
+    cache's dense view, earlier segments included), so chaining
+    segments reproduces a single-shot ``prefill``. Full-causal only: an
+    SWA ring has no stable absolute cells to resume into."""
+    _check_dense(cfg)
+    if cfg.sliding_window is not None:
+        raise ValueError("prefill_extend is full-causal only (SWA "
+                         "rings roll; resume offsets are undefined)")
+    start, seg_len = int(start), int(seg_len)
+    x = common.embedding_lookup(params["embed"], tokens)
+    b, s, _ = x.shape
+    hd = _head_dim(cfg)
+    positions = (start + torch.arange(s, device=x.device))[None].expand(b, s)
+    scan = cache["scan"]
+    for i in range(cfg.n_layers):
+        p = layer_params(params, i)
+        c = scan.layer(i)
+        q, k, v = _qkv(cfg, p, x, positions)
+        attn.cache_update(c, k, v)                   # writes at length
+        view = attn.paged_view(c) if isinstance(c, attn.PagedKVCache) \
+            else c
+        o = attn.attention(q, view.k, view.v, causal=True, q_offset=start,
+                           block_q=cfg.block_q)
+        x = x + o.reshape(b, s, cfg.n_heads * hd) @ p["wo"]
+        x = x + _ffn_block(cfg, p, x)
+    # cache_update advanced length by the PADDED width; the true cursor
+    # is start + seg_len
+    scan.length.fill_(start + seg_len)
+    return _head_logits(cfg, params, x[:, seg_len - 1:seg_len]), cache
 
 
 @torch.no_grad()

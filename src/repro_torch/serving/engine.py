@@ -19,7 +19,14 @@ Two schedulers share one protocol (submit / step / run_until_drained):
       sampling (greedy, temperature, top-k, top-p), the per-slot
       ``done`` and ``remaining`` flags and the (N, B) token block stay
       on the device, and one transfer per chunk brings the block (and
-      the first tokens of the requests admitted before it) to the host.
+      the first tokens of the requests admitted before it) to the host;
+    - with ``overlap_admission`` the queued requests prefill (batch 1)
+      after a chunk is enqueued and before its token block is read
+      back, and splice into slots at the next chunk boundary.
+
+``serving.paging.PagedEngine`` is a ``ContinuousEngine`` over a paged
+KV pool; it plugs into the scheduler seams ``_make_cache``,
+``_release_slot``, ``_before_chunk`` and ``_after_chunk``.
 
 Both engines give identical greedy tokens. Sampled tokens come from one
 ``torch.Generator`` per request, seeded from (engine seed, rid), so they
@@ -198,10 +205,14 @@ class _EngineBase:
     def step(self) -> int:
         raise NotImplementedError
 
+    def _waiting(self) -> bool:
+        """Requests submitted but not yet in a slot."""
+        return bool(self.queue)
+
     def run_until_drained(self, max_steps: int = 10_000) -> None:
         t0 = time.perf_counter()
         for _ in range(max_steps):
-            if self.step() == 0 and not self.queue:
+            if self.step() == 0 and not self._waiting():
                 break
         self.wall += time.perf_counter() - t0
 
@@ -325,15 +336,24 @@ class ContinuousEngine(_EngineBase):
 
     def __init__(self, model, params, *, decode_chunk: int = 8,
                  top_k: int = 0, top_p: float = 0.0, seed: int = 0,
-                 batch_admit: bool = True, **kw):
+                 batch_admit: bool = True, overlap_admission: bool = False,
+                 **kw):
         super().__init__(model, params, **kw)
         self.decode_chunk = decode_chunk
         self.top_k = top_k
         self.top_p = top_p
         self.seed = seed
         self.batch_admit = batch_admit
+        # overlap admission prefill with the decode chunk: after the
+        # chunk is enqueued (before its blocking host read), queued
+        # requests prefill into batch-1 scratch caches; they splice into
+        # slots at the next chunk boundary. Same tokens as serial
+        # batch-1 admission: per-rid streams and exact right-padded
+        # prefill do not depend on placement or timing.
+        self.overlap_admission = overlap_admission
+        self._prepped: deque = deque()     # (req, scratch cache, logits)
         dev, b = self.device, self.slots
-        self.cache = model.init_cache(b, self.shape)
+        self.cache = self._make_cache()
         self.tokens = torch.full((b, 1), self.pad_id, dtype=torch.int32,
                                  device=dev)
         self.done = torch.ones((b,), dtype=torch.bool, device=dev)
@@ -347,6 +367,13 @@ class ContinuousEngine(_EngineBase):
         self.stats["decode_chunks"] = 0
         self.stats["prefills"] = 0
         self.stats["admit_batch_max"] = 0
+
+    def _make_cache(self):
+        """The engine's B-slot cache (the paged engine builds a pool)."""
+        return self.model.init_cache(self.slots, self.shape)
+
+    def _waiting(self) -> bool:
+        return bool(self.queue or self._prepped)
 
     # -- device-side pieces ---------------------------------------------------
 
@@ -388,6 +415,9 @@ class ContinuousEngine(_EngineBase):
         power of two with throwaway rows); rows never interact, so each
         row's cache and logits equal a batch-1 prefill's."""
         free = [s for s in range(self.slots) if self.active[s] is None]
+        while free and self._prepped:       # overlap-prefilled splice
+            req, sub, logits = self._prepped.popleft()
+            self._install(req, free.pop(0), sub, 0, logits)
         n = min(len(free), len(self.queue))
         if n == 0:
             return
@@ -397,6 +427,21 @@ class ContinuousEngine(_EngineBase):
         for grp in groups:
             self._admit_group(grp, free[taken:taken + len(grp)])
             taken += len(grp)
+
+    def _prep_admissions(self) -> None:
+        """Prefill queued requests (batch 1) while the decode chunk is
+        still in flight: called between enqueuing the chunk and its
+        blocking host read. The results wait in ``_prepped`` and splice
+        at the next chunk boundary."""
+        while self.queue and len(self._prepped) < self.slots:
+            req = self.queue.popleft()
+            self._check_prompt(req)
+            n = len(req.prompt)
+            tokens = np.full((1, self._padded_len(n)), self.pad_id, np.int32)
+            tokens[0, :n] = req.prompt
+            self.stats["prefills"] += 1
+            logits, sub = self._prefill(tokens, np.array([n], np.int32))
+            self._prepped.append((req, sub, logits))
 
     def _admit_group(self, reqs: list, slots: list) -> None:
         for req in reqs:
@@ -418,11 +463,19 @@ class ContinuousEngine(_EngineBase):
     def _install(self, req: Request, slot: int, sub, row: int,
                  logits: torch.Tensor) -> None:
         """Copy row ``row`` of the prefilled cache ``sub`` into ``slot``,
-        sample the first token and reset the slot's device state."""
+        then reset the slot's state (``_admit_state``)."""
         big, small = self.cache["scan"], sub["scan"]
         big.k[:, slot] = small.k[:, row]
         big.v[:, slot] = small.v[:, row]
         big.length[:, slot] = small.length[:, row]
+        self._admit_state(req, slot, logits)
+
+    def _admit_state(self, req: Request, slot: int,
+                     logits: torch.Tensor) -> None:
+        """Post-splice half of admission: sample the first token from the
+        (1, V) last-prompt-token ``logits`` and reset the slot's device
+        state (shared by the dense splice and the paged engine's
+        block-table paths)."""
         temp = float(req.temperature)
         gen = request_generator(self.seed, req.rid, self.device) \
             if temp > 0 else None
@@ -445,6 +498,7 @@ class ContinuousEngine(_EngineBase):
         self._retire(req)
         self.active[slot] = None
         self._gens[slot] = None
+        self._release_slot(slot)
 
     def _drain(self, first_np: np.ndarray, toks_np: np.ndarray) -> None:
         now = time.perf_counter()
@@ -470,6 +524,20 @@ class ContinuousEngine(_EngineBase):
                     self._release(slot, req)
                     break
 
+    # -- scheduler seams (the paged engine overrides them) --------------------
+
+    def _release_slot(self, slot: int) -> None:
+        """Called when ``slot`` retires: the paged engine drops its block
+        refs here."""
+
+    def _before_chunk(self) -> None:
+        """Called after admission, before the decode chunk is enqueued:
+        the paged engine's copy-on-write fork point."""
+
+    def _after_chunk(self, n: int) -> None:
+        """Called after the chunk's host read, when every slot's cache
+        length has advanced by ``n``."""
+
     def step(self) -> int:
         """One scheduling quantum: admit into free slots, run one decode
         chunk on the device, read its token block back (the single
@@ -477,8 +545,13 @@ class ContinuousEngine(_EngineBase):
         self._admit()
         if not any(r is not None for r in self.active):
             return 0
+        self._before_chunk()
         n = self.decode_chunk
         toks = self._chunk(n)
+        if self.overlap_admission:
+            # the chunk is enqueued but not read back: admission
+            # prefills ride the gap
+            self._prep_admissions()
         block = torch.cat([self.first[None], toks]).cpu().numpy()
         self.first.fill_(-1)
         self.stats["host_syncs"] += 1
@@ -486,19 +559,20 @@ class ContinuousEngine(_EngineBase):
         self.stats["decode_steps"] += n
         self.stats["total_slot_steps"] += n * self.slots
         self.stats["busy_slot_steps"] += int((block[1:] >= 0).sum())
+        self._after_chunk(n)
         self._drain(block[0], block[1:])
         return sum(r is not None for r in self.active)
 
 
 def make_engine(kind: str, model, params, **kw):
     if kind == "wave":
-        for k in ("decode_chunk", "top_k", "top_p", "seed", "batch_admit"):
+        for k in ("decode_chunk", "top_k", "top_p", "seed", "batch_admit",
+                  "overlap_admission"):
             kw.pop(k, None)
         return WaveEngine(model, params, **kw)
     if kind == "continuous":
         return ContinuousEngine(model, params, **kw)
     if kind == "paged":
-        raise NotImplementedError(
-            "the paged engine is not ported yet (next slice, with the "
-            "flash_decode_paged kernel)")
+        from repro_torch.serving.paging import PagedEngine
+        return PagedEngine(model, params, **kw)
     raise ValueError(f"unknown engine kind {kind!r}")

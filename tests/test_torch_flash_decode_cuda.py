@@ -1,5 +1,6 @@
-"""The hand-written CUDA flash-decode kernel against its plain PyTorch
-version on the card. Needs a CUDA device and nvcc (skipped without a
+"""The hand-written CUDA flash-decode kernel (dense and paged) against its
+plain PyTorch version on the card, and the paged kernel bitwise against
+the dense one. Needs a CUDA device and nvcc (skipped without a
 device); imports no JAX, so it runs on the GPU machine:
 
   PYTHONPATH=src python -m pytest -q tests/test_torch_flash_decode_cuda.py
@@ -102,3 +103,114 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
                         v[..., :12].contiguous(), length)
     with pytest.raises(ValueError):
         fd.flash_decode(q, k.cpu(), v, length)
+
+
+# -- flash_decode_paged -------------------------------------------------------
+
+
+def _paged(k, v, length, blk, seed=0, unmap=True):
+    """Scatter a dense cache (B, S, Hk, dh) into a pool with a PERMUTED
+    physical layout: block 0 is the trash block (filled with noise, so a
+    read of it would show), and table entries past each slot's live
+    blocks are -1 when ``unmap``."""
+    b, s, hk, dh = k.shape
+    nb = s // blk
+    gen = torch.Generator().manual_seed(seed)
+    table = (torch.randperm(b * nb, generator=gen) + 1).reshape(b, nb)
+    kp = torch.randn((b * nb + 1, blk, hk, dh), device=k.device).to(k.dtype)
+    vp = torch.randn_like(kp)
+    for bi in range(b):
+        kp[table[bi]] = k[bi].reshape(nb, blk, hk, dh)
+        vp[table[bi]] = v[bi].reshape(nb, blk, hk, dh)
+        if unmap:
+            table[bi, -(-int(length[bi]) // blk):] = -1
+    return kp, vp, table.to(torch.int32).to(k.device)
+
+
+def _check_paged(q, kp, vp, table, length, window=None):
+    """The paged kernel against its plain version, and bitwise equal to
+    the dense kernel on the gathered view."""
+    from repro_torch.models.attention import PagedKVCache, paged_view
+    before = fd.flash_decode_paged.launches
+    out = fd.flash_decode_paged(q, kp, vp, table, length, window=window)
+    torch.cuda.synchronize()
+    assert fd.flash_decode_paged.launches == before + 1
+    ref = fd.flash_decode_paged_torch(q, kp, vp, table, length,
+                                      window=window)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[q.dtype],
+                               atol=TOL[q.dtype])
+    view = paged_view(PagedKVCache(kp, vp, table, length))
+    dense = fd.flash_decode(q, view.k.contiguous(), view.v.contiguous(),
+                            length, window=window)
+    assert torch.equal(out, dense)
+    return out
+
+
+@needs_cuda
+@pytest.mark.parametrize("blk", [8, 16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_matches_plain_and_dense(blk, dtype):
+    """The serving shape (B=4, Hk=8, G=4, dh=128, 512 cells)."""
+    length = [0, 1, 300, 512]
+    q, k, v, ln = _inputs(4, 512, 8, 4, 128, dtype, length, seed=blk)
+    _check_paged(q, *_paged(k, v, length, blk, seed=blk), ln)
+
+
+@needs_cuda
+@pytest.mark.parametrize("case,blk", [((3, 64, 2, 4, 16), 16),
+                                      ((2, 40, 1, 1, 32), 8),
+                                      ((1, 128, 4, 3, 64), 32),
+                                      ((2, 96, 1, 8, 256), 32),
+                                      ((2, 48, 2, 5, 24), 1)])
+@pytest.mark.parametrize("unmap", [False, True])
+def test_paged_kernel_bitwise_dense_permuted(case, blk, unmap):
+    b, s, hk, g, dh = case
+    length = [s, s // 2 + 3][:b] + [s // 3] * (b - 2)
+    q, k, v, ln = _inputs(b, s, hk, g, dh, torch.bfloat16, length)
+    _check_paged(q, *_paged(k, v, length, blk, unmap=unmap), ln)
+
+
+@needs_cuda
+@pytest.mark.parametrize("length_off", list(range(-1, 10)))
+def test_paged_kernel_swa_wrap(length_off):
+    b, s, hk, g, dh, window, blk = 2, 32, 2, 2, 16, 24, 8
+    length = [s + length_off, max(0, s + length_off - 1)]
+    q, k, v, ln = _inputs(b, s, hk, g, dh, torch.float32, length)
+    _check_paged(q, *_paged(k, v, length, blk, unmap=False), ln,
+                 window=window)
+
+
+@needs_cuda
+def test_paged_kernel_empty_and_released_slots():
+    """Length 0 returns exactly 0; a released slot (table row all -1)
+    still decoding reads trash block 0, as the plain version does."""
+    q, k, v, _ = _inputs(3, 64, 2, 2, 16, torch.bfloat16, [0, 0, 0])
+    kp, vp, table = _paged(k, v, [64, 64, 64], 16, unmap=False)
+    table[1:] = -1
+    out = _check_paged(q, kp, vp, table,
+                       torch.tensor([0, 0, 40], dtype=torch.int32,
+                                    device="cuda"))
+    assert torch.equal(out[:2], torch.zeros_like(out[:2]))
+    assert out[2].abs().sum() > 0
+
+
+@needs_cuda
+def test_paged_wrapper_rejects_what_the_kernel_does_not_take():
+    q, k, v, ln = _inputs(2, 64, 2, 2, 16, torch.float32, [3, 40])
+    kp, vp, table = _paged(k, v, [3, 40], 16)
+    flat = torch.empty(kp.numel() + 1, device="cuda")
+    shifted = flat[1:].view(kp.shape)          # contiguous, 4-byte aligned
+    with pytest.raises(ValueError, match="aligned"):
+        fd.flash_decode_paged(q, shifted, vp, table, ln)
+    with pytest.raises(ValueError, match="contiguous"):
+        fd.flash_decode_paged(
+            q, kp.transpose(1, 2).contiguous().transpose(1, 2), vp, table,
+            ln)
+    with pytest.raises(TypeError, match="int32"):
+        fd.flash_decode_paged(q, kp, vp, table.long(), ln)
+    with pytest.raises(ValueError, match="contiguous"):
+        fd.flash_decode_paged(q, kp, vp,
+                              table.t().contiguous().t(), ln)
+    with pytest.raises(ValueError):
+        fd.flash_decode_paged(q, kp, vp, table.cpu(), ln)

@@ -122,7 +122,8 @@ def test_sample_tokens_masks():
 
 def test_port_imports_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.launch.serve, "
-            "repro_torch.serving.engine, repro_torch.kernels.flash_decode, "
+            "repro_torch.serving.engine, repro_torch.serving.paging, "
+            "repro_torch.kernels.flash_decode, "
             "repro_torch.convert, repro_torch.launch.train, "
             "repro_torch.launch.profile_train, "
             "repro_torch.train.loop, repro_torch.kernels.ref, "
@@ -160,7 +161,22 @@ def test_serve_main_on_cpu(capsys):
     assert "tok/s=" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv", [["--engine", "paged"], ["--swarm"]])
+def test_serve_main_paged_on_cpu(capsys):
+    from repro_torch.launch import serve
+    s = serve.main(["--device", "cpu", "--reduced", "--engine", "paged",
+                    "--requests", "3", "--max-new", "4", "--max-len", "32",
+                    "--block-size", "8", "--pool-blocks", "9"])
+    assert s["engine"] == "paged" and s["requests"] == 3 and all(s["done"])
+    assert all(0 <= t < s["padded_vocab"] for o in s["outputs"] for t in o)
+    assert s["block_size"] == 8 and s["pool_blocks"] == 8
+    assert 0 < s["blocks_peak"] <= 8
+    for key in ("prefix_hits", "prefix_hit_rate", "cow_forks",
+                "paged_extends", "cold_blocks"):
+        assert key in s
+    assert "prefix_hit_rate=" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv", [["--swarm"]])
 def test_serve_unported_paths_raise(argv):
     from repro_torch.launch import serve
     with pytest.raises(NotImplementedError):
