@@ -12,10 +12,12 @@ Phases, each of which raises on failure (nothing is caught):
 3. kernels: each kernel against its plain PyTorch version on the card,
    at its main path's shapes (flash-decode and paged flash-decode at the
    serving shape, the four int8 codec kernels at the training ring's
-   2 x 378,535,936 fp32 hop), with its time, its plain version's time,
+   2 x 378,549,248 fp32 hop), with its time, its plain version's time,
    the time of the nearest PyTorch call (a yardstick the port never
    calls) and the least time the card could take; the paged kernel must
-   also be bitwise equal to the dense one on the gathered view;
+   also be bitwise equal to the dense one on the gathered view; the two
+   encode kernels also on constant and heavy-tailed rows, and the device
+   time of each of their launches (torch.profiler);
 4. reduced models: the reduced INTELLECT-1 served (continuous and paged
    engines) and trained on the card must agree with the same model on
    the CPU;
@@ -562,21 +564,28 @@ def serve_paged_checks(paged_outputs) -> dict:
 
 def train_hop_shape() -> tuple[int, int]:
     """(rows, n) of the training ring's codec calls: one row per ring
-    position, one bucket of ceil(ceil(numel / k) / buckets) elements."""
+    position, one bucket of ceil(ceil(numel / k) / buckets) elements,
+    numel counted over the trainer's tensors (built on the meta device,
+    so nothing is allocated)."""
     from repro_torch.configs import get_config
+    from repro_torch.core.sync_engine import leaves
     from repro_torch.launch.train import build_parser
+    from repro_torch.models import transformer
     a = build_parser().parse_args(TRAIN_ARGS)
     cfg = dataclasses.replace(get_config(a.arch), n_layers=a.n_layers)
-    chunk = -(-cfg.param_count() // a.max_workers)
+    params = transformer.init_lm(cfg, torch.Generator(), device="meta")
+    numel = sum(t.numel() for t in leaves(params))
+    chunk = -(-numel // a.max_workers)
     return a.max_workers, -(-chunk // a.sync_buckets)
 
 
 def check_hist(label, x, lo, width, got, want, again) -> float:
     """Codes and counts exact; a second call bitwise equal; sums within
     1e-4 of each bucket's sum of |x| of the plain version's (which adds
-    in fp64; the kernel adds in fp32, at most a few thousand terms in a
-    row); codebooks within 1e-4 of the bucket's mean |x| (+1e-6 widths).
-    Returns the largest codebook difference."""
+    in fp64; the kernel adds 64-bit fixed-point integers, each term off
+    by at most 2^-45 of the row's range bound); codebooks within 1e-4
+    of the bucket's mean |x| (+1e-6 widths). Returns the largest
+    codebook difference."""
     from repro_torch.kernels import ref
     codes, sums, counts = got
     wc, ws, wn = want
@@ -649,7 +658,12 @@ def check_int8_codec() -> list[dict]:
             time_ms(library, iters=10), shape))
         log(f"kernel {name} {shape}: codes and counts exact, repeatable; "
             f"codebook max|err|={err:.3g}; {out[-1]['ms']:.3f} ms "
-            f"(bound {out[-1]['bound_ms']:.3f})")
+            f"(bound {out[-1]['bound_ms']:.3f}, plain "
+            f"{out[-1]['plain_ms']:.3f}, bincount "
+            f"{out[-1]['library_ms']:.3f})")
+        split = launch_split_ms(lambda: kernel(lo, width))
+        log(f"kernel {name} launches, device ms per call (torch.profiler): "
+            f"{json.dumps(split)}")
         return codes, ref.make_codebook(*kernel(lo, width)[1:], lo, width)
 
     # kernel 1 on a pseudo-gradient, kernel 2 fused with per-row scales
@@ -696,7 +710,92 @@ def check_int8_codec() -> list[dict]:
             f"(bound {out[-1]['bound_ms']:.3f})")
     del codes, book, acc
     torch.cuda.empty_cache()
+    check_encode_skewed(shape, gen)
     return out
+
+
+def launch_split_ms(fn, calls: int = 5) -> dict:
+    """Device ms per call of each kernel that ``fn()`` launches (the
+    encode, its finish kernel, the fill of the zeroed scratch), from
+    ``torch.profiler`` over ``calls`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {e.key.split("(")[0][:48]: e.self_device_time_total / 1e3 / calls
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and e.self_device_time_total > 0}
+    if not split:
+        raise AssertionError("torch.profiler saw no device time")
+    return split
+
+
+def check_encode_skewed(shape, gen) -> dict:
+    """Kernels 1 and 2 on rows the ring meets besides Gaussian ones, at
+    the hop shape: constant rows (encode: a row of zeros beside a row of
+    0.5; fused: both workers at scale 0, so both rows are 0) and
+    heavy-tailed rows (Student-t with 2 degrees of freedom, 1e-3 wide,
+    with outliers of +-1e3 on both sides of every row). Checked as the
+    Gaussian rows are; times printed here, not in the kernels line."""
+    from repro_torch.kernels import int8_quant as iq
+    from repro_torch.kernels import ref
+    rows, n = shape
+    times = {}
+
+    def phase(label, x, kernel, plain, nbytes):
+        lo, width = ref.quant_params(x)
+        got, again = kernel(lo, width), kernel(lo, width)
+        want = plain(lo, width)
+        torch.cuda.synchronize()
+        check_hist(label, x, lo, width, got, want, again)
+        del got, again, want
+        ms = time_ms(lambda: kernel(lo, width))
+        bound = rows * n * nbytes / HBM_BYTES_PER_S * 1e3
+        times[label] = {"ms": ms, "bound_ms": bound}
+        log(f"kernel {label} {shape}: codes and counts exact, repeatable; "
+            f"{ms:.3f} ms (bound {bound:.3f})")
+
+    def heavy_tail():
+        z = torch.randn(shape, generator=gen, device="cuda")
+        w = torch.randn(shape, generator=gen, device="cuda").square_()
+        w.add_(torch.randn(shape, generator=gen, device="cuda").square_())
+        z.div_(w.div_(2.0).sqrt_()).mul_(1e-3)
+        del w
+        z[:, :4] = torch.tensor([1e3, -1e3, 5e2, -2e3], device="cuda")
+        return z
+
+    x = torch.full(shape, 0.5, device="cuda")
+    x[0].zero_()
+    phase("encode_hist constant rows", x,
+          lambda lo, w: iq.encode_hist(x, lo, w),
+          lambda lo, w: iq.encode_hist_torch(x, lo, w), 5)
+    x = heavy_tail()
+    phase("encode_hist heavy-tailed rows", x,
+          lambda lo, w: iq.encode_hist(x, lo, w),
+          lambda lo, w: iq.encode_hist_torch(x, lo, w), 5)
+    anchor = x
+    theta = torch.randn(shape, generator=gen, device="cuda").mul_(1e-3)
+    for label, scale in (("constant rows (scale 0)", [0.0, 0.0]),
+                         ("heavy-tailed rows", [1.0, 0.5])):
+        s = torch.tensor(scale, device="cuda")[:rows]
+        th = theta if scale[0] == 0.0 else torch.zeros_like(anchor)
+        pg = ref.pseudograd(anchor, th, s)
+        phase(f"pseudograd_encode_hist {label}", pg,
+              lambda lo, w: iq.pseudograd_encode_hist(anchor, th, lo, w,
+                                                      scale=s),
+              lambda lo, w: iq.pseudograd_encode_hist_torch(
+                  anchor, th, lo, w, scale=s), 9)
+        del pg, th
+    del x, anchor, theta
+    torch.cuda.empty_cache()
+    log(f"codec skewed rows: {json.dumps(times)}")
+    return times
 
 
 def ring_bound(trainer, weights) -> float:
