@@ -17,7 +17,10 @@ Phases, each of which raises on failure (nothing is caught):
    calls) and the least time the card could take; the paged kernel must
    also be bitwise equal to the dense one on the gathered view; the two
    encode kernels also on constant and heavy-tailed rows, and the device
-   time of each of their launches (torch.profiler);
+   time of each of their launches (torch.profiler); both flash-decode
+   kernels must repeat bit for bit, show one device kernel per call in
+   torch.profiler, and are also checked and timed at a long shape
+   (B=4, S_max=8192, lengths [8192, 4096, 2048, 1]) beside SDPA;
 4. reduced models: the reduced INTELLECT-1 served (continuous and paged
    engines) and trained on the card must agree with the same model on
    the CPU;
@@ -49,6 +52,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -69,6 +73,9 @@ TRAIN_ARGS = ["--arch", "internlm2-1.8b", "--n-layers", "6", "--workers", "2",
               "--batch-per-worker", "4", "--inner-steps", "4",
               "--outer-steps", "2"]
 CODEC = ("pseudograd_encode_hist", "encode_hist", "decode_add", "decode")
+# (B, S_max, Hk, G, dh, lengths): INTELLECT-1's attention at a long cache,
+# where the bytes rather than the latency chain should set the pace
+FD_LONG = (4, 8192, 8, 4, 128, [8192, 4096, 2048, 1])
 L2_FLUSH_BYTES = 256 << 20       # > the 50 MB L2: each timed call starts cold
 SPIN_CYCLES = 2_000_000          # ~1 ms at the H100's 1.98 GHz boost clock
 
@@ -101,10 +108,12 @@ def build() -> None:
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         libs = list(pool.map(_build.build, names))
     log(f"build: {names} in {time.perf_counter() - t0:.1f}s")
-    for lib in libs:
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {lib.stem}: {line.strip()}")
+    for lib in libs:    # ptxas -v, summed over the source's instances
+        text = lib.with_suffix(".log").read_text()
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill", text))
+        log(f"  ptxas {lib.stem}: {len(regs)} kernels, {min(regs)}-"
+            f"{max(regs)} registers, {spills} bytes of spills")
 
 
 def time_ms(fn, iters: int = 50) -> float:
@@ -175,6 +184,44 @@ def paged_pool(k, v, length, blk, seed):
     return kp, vp, table.to(device="cuda", dtype=torch.int32)
 
 
+def check_repeat_and_close(label, out, again, ref, dtype) -> float:
+    """``out`` within TOL of the plain ``ref``, finite, and a second
+    call ``again`` bitwise equal to it; returns max |out - ref|."""
+    err = (out.float() - ref.float()).abs().max().item()
+    if not torch.isfinite(out).all() or err > TOL[dtype]:
+        raise AssertionError(f"{label}: max |err| {err} > {TOL[dtype]}")
+    if not torch.equal(out, again):
+        raise AssertionError(f"{label}: a second call differs")
+    return err
+
+
+def one_kernel_per_call(label, fn) -> dict:
+    """torch.profiler over ``calls`` calls of ``fn``: the flash-decode
+    kernel is the only device kernel, recorded at most once a call; its
+    device ms per recorded launch. The trace loses records of the paged
+    kernel on the H100 (8 of 10, run after run; the dense kernel's come
+    complete), so fewer records than calls are logged, not failed: a
+    lost record cannot show a second kernel either way. A trace with no
+    record at all (seen once) is taken again, up to three times."""
+    from repro_torch.kernels import flash_decode as fd
+    calls = 10
+    for _ in range(3):
+        kernels = device_kernels(fn, calls)
+        if kernels:
+            break
+    if (len(kernels) != 1 or fd.KERNEL_NAME not in kernels[0][0]
+            or kernels[0][1] > calls):
+        raise AssertionError(f"{label}: want one {fd.KERNEL_NAME} launch a "
+                             f"call, torch.profiler saw {kernels} over "
+                             f"{calls} calls")
+    name, recorded, ms = kernels[0]
+    split = {name[name.index(fd.KERNEL_NAME):].split("(")[0]:
+             ms / recorded}
+    log(f"kernel {label} launches, device ms per call (torch.profiler, "
+        f"{recorded} of {calls} launches recorded): {json.dumps(split)}")
+    return split
+
+
 def check_flash_decode_paged() -> dict:
     """Kernel 6 at the serving shape: a permuted 129-block pool of
     16-cell blocks, against its plain version and bitwise against the
@@ -202,13 +249,13 @@ def check_flash_decode_paged() -> dict:
                                    blk, seed=i)
         del k, v
         out = fd.flash_decode_paged(q, kp, vp, table, length, window=window)
+        again = fd.flash_decode_paged(q, kp, vp, table, length,
+                                      window=window)
         torch.cuda.synchronize()
         ref = fd.flash_decode_paged_torch(q, kp, vp, table, length,
                                           window=window)
-        err = (out.float() - ref.float()).abs().max().item()
-        if not torch.isfinite(out).all() or err > TOL[dtype]:
-            raise AssertionError(f"flash_decode_paged {label}: max |err| "
-                                 f"{err} > {TOL[dtype]}")
+        err = check_repeat_and_close(f"flash_decode_paged {label}", out,
+                                     again, ref, dtype)
         view = paged_view(PagedKVCache(kp, vp, table, length))
         dense = fd.flash_decode(q, view.k, view.v, length, window=window)
         if not torch.equal(out, dense):
@@ -218,8 +265,8 @@ def check_flash_decode_paged() -> dict:
             raise AssertionError(f"flash_decode_paged {label}: empty slot "
                                  "not 0")
         log(f"kernel flash_decode_paged {label}: max|err|={err:.3g} "
-            f"(tol {TOL[dtype]}), bitwise equal to flash_decode on the "
-            f"gathered view")
+            f"(tol {TOL[dtype]}), a second call bitwise equal, bitwise "
+            f"equal to flash_decode on the gathered view")
         if label != "serve-bf16":
             continue
         valid = decode_valid_mask(length, s, window)[:, None, None, :]
@@ -260,7 +307,69 @@ def check_flash_decode_paged() -> dict:
             f"bound {bound:.6f} ms, plain {result['plain_ms']:.5f} ms, "
             f"gather+SDPA {result['library_ms']:.5f} ms, SDPA alone "
             f"{result['library_sdpa_only_ms']:.5f} ms")
+        result["launch_split_ms"] = one_kernel_per_call(
+            "flash_decode_paged serve-bf16",
+            lambda: fd.flash_decode_paged(q, kp, vp, table, length))
+    result.update(flash_decode_paged_long())
     return result
+
+
+def flash_decode_paged_long() -> dict:
+    """Kernel 6 at ``FD_LONG`` on a permuted pool of 16-cell blocks:
+    against its plain version, bitwise against the dense kernel on the
+    gathered view, repeated bitwise; timed beside gather + SDPA."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models.attention import (PagedKVCache, decode_valid_mask,
+                                              paged_view)
+    b, s, hk, g, dh, lengths = FD_LONG
+    blk = 16
+    q, k, v, length = flash_decode_inputs(b, s, hk, g, dh, torch.bfloat16,
+                                          lengths, seed=21)
+    kp, vp, table = paged_pool(k, v, lengths, blk, seed=21)
+    del k, v
+    torch.cuda.empty_cache()
+    out = fd.flash_decode_paged(q, kp, vp, table, length)
+    again = fd.flash_decode_paged(q, kp, vp, table, length)
+    torch.cuda.synchronize()
+    err = check_repeat_and_close(
+        "flash_decode_paged long", out, again,
+        fd.flash_decode_paged_torch(q, kp, vp, table, length), q.dtype)
+    view = paged_view(PagedKVCache(kp, vp, table, length))
+    if not torch.equal(out, fd.flash_decode(q, view.k, view.v, length)):
+        raise AssertionError("flash_decode_paged long: not bitwise equal to "
+                             "flash_decode on the gathered view")
+    valid = decode_valid_mask(length, s, None)[:, None, None, :]
+    qt = q.transpose(1, 2)
+
+    def library():
+        vw = paged_view(PagedKVCache(kp, vp, table, length))
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, vw.k.transpose(1, 2), vw.v.transpose(1, 2),
+            attn_mask=valid, enable_gqa=True)
+    bound, _ = flash_decode_bound(q, view.k, length, None,
+                                  extra_bytes=table.numel() * 4)
+    long = {
+        "long_ms": time_ms(lambda: fd.flash_decode_paged(q, kp, vp, table,
+                                                         length)),
+        "long_bound_ms": bound, "long_library_ms": time_ms(library),
+        "long_dense_kernel_ms": time_ms(lambda: fd.flash_decode(
+            q, view.k, view.v, length)),
+        "long_max_abs_err": err,
+        "long_shape": {"B": b, "S_max": s, "Hk": hk, "G": g, "dh": dh,
+                       "blk": blk, "pool_blocks": kp.shape[0],
+                       "dtype": "bfloat16", "lengths": lengths},
+    }
+    long["long_launch_split_ms"] = one_kernel_per_call(
+        "flash_decode_paged long",
+        lambda: fd.flash_decode_paged(q, kp, vp, table, length))
+    log(f"kernel flash_decode_paged long {FD_LONG[:5]} {lengths}: "
+        f"max|err|={err:.3g}, repeat and dense-view bitwise equal; "
+        f"{long['long_ms']:.5f} ms, dense kernel on the view "
+        f"{long['long_dense_kernel_ms']:.5f} ms, bound {bound:.6f} ms, "
+        f"gather+SDPA {long['long_library_ms']:.5f} ms")
+    del q, kp, vp, table, view
+    torch.cuda.empty_cache()
+    return long
 
 
 def check_flash_decode() -> dict:
@@ -280,16 +389,15 @@ def check_flash_decode() -> dict:
         q, k, v, length = flash_decode_inputs(b, s, hk, g, dh, dtype,
                                               lengths, seed=i)
         out = fd.flash_decode(q, k, v, length, window=window)
+        again = fd.flash_decode(q, k, v, length, window=window)
         torch.cuda.synchronize()
         ref = fd.flash_decode_torch(q, k, v, length, window=window)
-        err = (out.float() - ref.float()).abs().max().item()
-        if not torch.isfinite(out).all() or err > TOL[dtype]:
-            raise AssertionError(f"flash_decode {label}: max |err| {err} "
-                                 f"> {TOL[dtype]}")
+        err = check_repeat_and_close(f"flash_decode {label}", out, again,
+                                     ref, dtype)
         if lengths[0] == 0 and out[0].abs().max().item() != 0.0:
             raise AssertionError(f"flash_decode {label}: empty slot not 0")
         log(f"kernel flash_decode {label}: max|err|={err:.3g} "
-            f"(tol {TOL[dtype]})")
+            f"(tol {TOL[dtype]}), a second call bitwise equal")
         if label != "serve-bf16":
             continue
         valid = decode_valid_mask(length, s, window)[:, None, None, :]
@@ -312,7 +420,52 @@ def check_flash_decode() -> dict:
             "shape": {"B": b, "S_max": s, "Hk": hk, "G": g, "dh": dh,
                       "dtype": "bfloat16", "lengths": lengths},
         }
+        log(f"kernel flash_decode serve-bf16: {result['ms']:.5f} ms, bound "
+            f"{bound:.6f} ms, plain {result['plain_ms']:.5f} ms, SDPA "
+            f"{result['library_ms']:.5f} ms")
+        result["launch_split_ms"] = one_kernel_per_call(
+            "flash_decode serve-bf16", lambda: fd.flash_decode(q, k, v,
+                                                               length))
+    result.update(flash_decode_long())
     return result
+
+
+def flash_decode_long() -> dict:
+    """Kernel 5 at ``FD_LONG``: against its plain version, repeated
+    bitwise; timed beside SDPA."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models.attention import decode_valid_mask
+    b, s, hk, g, dh, lengths = FD_LONG
+    q, k, v, length = flash_decode_inputs(b, s, hk, g, dh, torch.bfloat16,
+                                          lengths, seed=20)
+    out = fd.flash_decode(q, k, v, length)
+    again = fd.flash_decode(q, k, v, length)
+    torch.cuda.synchronize()
+    err = check_repeat_and_close("flash_decode long", out, again,
+                                 fd.flash_decode_torch(q, k, v, length),
+                                 q.dtype)
+    valid = decode_valid_mask(length, s, None)[:, None, None, :]
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=valid, enable_gqa=True)
+    bound, _ = flash_decode_bound(q, k, length, None)
+    long = {
+        "long_ms": time_ms(lambda: fd.flash_decode(q, k, v, length)),
+        "long_bound_ms": bound, "long_library_ms": time_ms(library),
+        "long_max_abs_err": err,
+        "long_shape": {"B": b, "S_max": s, "Hk": hk, "G": g, "dh": dh,
+                       "dtype": "bfloat16", "lengths": lengths},
+    }
+    long["long_launch_split_ms"] = one_kernel_per_call(
+        "flash_decode long", lambda: fd.flash_decode(q, k, v, length))
+    log(f"kernel flash_decode long {FD_LONG[:5]} {lengths}: "
+        f"max|err|={err:.3g}, repeat bitwise equal; {long['long_ms']:.5f} "
+        f"ms, bound {bound:.6f} ms, SDPA {long['long_library_ms']:.5f} ms")
+    del q, k, v, kt, vt
+    torch.cuda.empty_cache()
+    return long
 
 
 def to_device(tree, device):
@@ -714,10 +867,9 @@ def check_int8_codec() -> list[dict]:
     return out
 
 
-def launch_split_ms(fn, calls: int = 5) -> dict:
-    """Device ms per call of each kernel that ``fn()`` launches (the
-    encode, its finish kernel, the fill of the zeroed scratch), from
-    ``torch.profiler`` over ``calls`` calls."""
+def device_kernels(fn, calls: int) -> list[tuple[str, int, float]]:
+    """(name, launches, device ms) of each kernel that ``calls`` calls
+    of ``fn()`` launch, from ``torch.profiler``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -727,13 +879,20 @@ def launch_split_ms(fn, calls: int = 5) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    split = {e.key.split("(")[0][:48]: e.self_device_time_total / 1e3 / calls
-             for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and e.self_device_time_total > 0}
-    if not split:
+    return [(e.key, e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
+def launch_split_ms(fn, calls: int = 5) -> dict:
+    """Device ms per call of each kernel that ``fn()`` launches (the
+    encode, its finish kernel, the fill of the zeroed scratch), from
+    ``torch.profiler`` over ``calls`` calls."""
+    kernels = device_kernels(fn, calls)
+    if not kernels:
         raise AssertionError("torch.profiler saw no device time")
-    return split
+    return {name.split("(")[0][:48]: ms / calls for name, _, ms in kernels}
 
 
 def check_encode_skewed(shape, gen) -> dict:

@@ -5,23 +5,35 @@ Hopper.
 Replaces the Pallas TPU kernels ``repro/kernels/flash_decode.py::
 flash_decode`` and ``::flash_decode_paged``. The kernel
 (``csrc/flash_decode.cu``) is bound by the K and V bytes of the live
-cells; it splits S across blocks so the card fills at decode batch
-sizes, keeps scores and probabilities in shared memory, accumulates in
-fp32 and combines the per-split partials in a second pass (see the note
-at the top of the source). The paged variant is the same split kernel
-with each cell's row looked up through the block table, so it is
-bitwise equal to the dense kernel on the gathered view.
+cells. The first design (two launches: a split kernel writing fp32
+partials of every 32-cell split, live or not, and a combine kernel
+reading them back) ran about 21x that bound at the serving shape, a
+fixed chain of latencies. This one is one launch with no scratch: a
+cluster of ``CLUSTER`` blocks per (kv head, slot) splits the slot's live
+prefix into contiguous tile ranges (``cluster_ranges`` models how),
+producer warps stream each live cell's K and V rows into a ring of 2 to
+``STAGES`` shared-memory stages with 16-byte ``cp.async`` copies
+completing on mbarriers, consumer warps keep an online softmax and the
+fp32 output in registers, and the blocks combine their partials through
+the cluster's distributed shared memory in rank order (see the note at
+the top of the source). The paged variant is the same kernel with each
+cell's row looked up through the block table, so it is bitwise equal to
+the dense kernel on the gathered view, and a call repeats bit for bit.
 
 ``flash_decode`` and ``flash_decode_paged`` launch the kernel for CUDA
 tensors and raise on what it does not take; for CPU tensors they run
 ``flash_decode_torch`` and ``flash_decode_paged_torch``, the plain
 PyTorch versions of the same functions, which are also the kernel's
-oracle in the tests and in ``chip_smoke.py``.
+oracle in the tests and in ``chip_smoke.py``. ``trace_phases`` times one
+launch block by block, from a build that stamps each phase.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
+import subprocess
+import tempfile
 
 import torch
 
@@ -30,8 +42,30 @@ from repro_torch.models.attention import (NEG_INF, PagedKVCache,
                                           decode_valid_mask, paged_view)
 
 MAX_HEAD_DIM = 256
-MAX_SMEM = 40 * 1024          # dynamic shared memory of the split kernel;
-# its static arrays (about 4 KB) take part of the 48 KB a block may use
+MAX_SMEM = 232448             # dynamic shared memory a block may use
+# the kernel's constants (``#define``s of csrc/flash_decode.cu)
+TILE_CELLS = 32               # FD_TILE: cache cells per shared-memory stage
+CLUSTER = 8                   # FD_CLUSTER: blocks per cluster
+STAGES = 3                    # FD_STAGES: most stages of the K/V ring
+KERNEL_NAME = "flash_decode_kernel"   # the device kernel, as profilers show it
+TRACE_BLOCKS = 4096           # FD_TRACE_BLOCKS: blocks a traced build stamps
+# what each of a block's stamps in a traced build marks (trace_phases)
+PHASES = ("entry", "q_ready", "first_tile_issued", "first_tile_landed",
+          "last_tile_done", "partials_ready", "output_written", "exit")
+
+
+def cluster_ranges(length: int, s_max: int) -> list[tuple[int, int]]:
+    """The cells [start, end) that each block of a cluster reads, in rank
+    order: the live prefix [0, hi), hi = min(length, s_max) (an SWA ring
+    that wrapped is live up to s_max), cut into tiles of ``TILE_CELLS``
+    cells and split into ``CLUSTER`` contiguous runs of whole tiles, ends
+    clipped to s_max. The kernel's ``tile_range``; cells of a range that
+    are not live are masked, never read."""
+    hi = max(0, min(int(length), s_max))
+    n = -(-hi // TILE_CELLS)
+    return [(r * n // CLUSTER * TILE_CELLS,
+             min((r + 1) * n // CLUSTER * TILE_CELLS, s_max))
+            for r in range(CLUSTER)]
 
 
 def flash_decode_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -67,16 +101,20 @@ def flash_decode_paged_torch(q: torch.Tensor, k_pool: torch.Tensor,
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The kernel's library (built at first use), with its C signatures."""
-    lib = _build.load("flash_decode")
+    return _signatures(_build.load("flash_decode"))
+
+
+def _signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.flash_decode_launch.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.flash_decode_launch.restype = ctypes.c_int
     lib.flash_decode_paged_launch.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.flash_decode_paged_launch.restype = ctypes.c_int
-    lib.flash_decode_cells.restype = ctypes.c_int
+    lib.flash_decode_smem_bytes.argtypes = [ctypes.c_int] * 6
+    lib.flash_decode_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -134,41 +172,43 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != q.shape[0]:
         raise ValueError(f"flash_decode: k/v shape {tuple(k.shape)} vs q "
                          f"{tuple(q.shape)}")
-    lib = _lib()
-    out, part_acc, part_ml = _outputs(q, k.shape[1], k.shape[2], lib)
+    out = _launch_dense(_lib(), q, k, v, length, window)
+    flash_decode.launches += 1
+    return out
+
+
+def _launch_dense(lib, q, k, v, length, window) -> torch.Tensor:
     b, _, hq, dh = q.shape
+    _check_smem(hq // k.shape[2], dh, q.dtype == torch.bfloat16, k.shape[1],
+                1, False)
+    out = torch.empty_like(q)
     err = lib.flash_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
-        b, k.shape[1], k.shape[2], hq // k.shape[2], dh,
+        out.data_ptr(), b, k.shape[1], k.shape[2], hq // k.shape[2], dh,
         -1 if window is None else int(window), float(dh ** -0.5),
         int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_decode: kernel launch failed with CUDA "
                            f"error {err}")
-    flash_decode.launches += 1
     return out
 
 
 flash_decode.launches = 0
 
 
-def _outputs(q, s_max: int, hk: int, lib):
-    """The output and the fp32 split partials of one launch over s_max
-    cells; raises if the split kernel's shared memory would not fit."""
-    b, _, hq, dh = q.shape
-    g = hq // hk
-    cells = lib.flash_decode_cells()
-    if g * (dh + cells) * 4 > MAX_SMEM:
-        raise ValueError(f"flash_decode: G={g}, dh={dh} needs more than "
-                         f"{MAX_SMEM} bytes of shared memory")
-    n_splits = -(-s_max // cells)
-    part_acc = torch.empty((b, hk, n_splits, g, dh), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((b, hk, n_splits, g, 2), dtype=torch.float32,
-                          device=q.device)
-    return torch.empty_like(q), part_acc, part_ml
+@functools.cache
+def _check_smem(g: int, dh: int, bf16: bool, s_max: int, blk: int,
+                paged: bool) -> None:
+    """Raise if a block of this launch needs more shared memory than a
+    block may use (the K/V stages grow with dh, the paged table entries
+    with S_max / blk). Cached: the decode loop asks the same each call."""
+    smem = _lib().flash_decode_smem_bytes(g, dh, int(bf16), s_max, blk,
+                                          int(paged))
+    if smem > MAX_SMEM:
+        raise ValueError(f"flash_decode: G={g}, dh={dh}, S_max={s_max}, "
+                         f"blk={blk} needs {smem} bytes of shared memory, "
+                         f"more than {MAX_SMEM}")
 
 
 def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
@@ -206,13 +246,13 @@ def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError("flash_decode_paged: table is not contiguous")
     n_blocks, blk, hk, dh = k_pool.shape
     nb = table.shape[1]
-    lib = _lib()
-    out, part_acc, part_ml = _outputs(q, nb * blk, hk, lib)
-    err = lib.flash_decode_paged_launch(
+    g = q.shape[2] // hk
+    _check_smem(g, dh, q.dtype == torch.bfloat16, nb * blk, blk, True)
+    out = torch.empty_like(q)
+    err = _lib().flash_decode_paged_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        table.data_ptr(), length.data_ptr(), part_acc.data_ptr(),
-        part_ml.data_ptr(), out.data_ptr(), b, nb, blk, n_blocks, hk,
-        q.shape[2] // hk, dh, -1 if window is None else int(window),
+        table.data_ptr(), length.data_ptr(), out.data_ptr(), b, nb, blk,
+        n_blocks, hk, g, dh, -1 if window is None else int(window),
         float(dh ** -0.5), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
@@ -223,3 +263,61 @@ def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 flash_decode_paged.launches = 0
+
+
+@functools.cache
+def _trace_lib() -> ctypes.CDLL:
+    """The kernel built with ``-DFD_TRACE=1`` (phase stamps), at first
+    use, beside the plain build."""
+    path = _build.library_path("flash_decode")
+    path = path.with_name(path.stem + "-trace.so")
+    if not path.exists():
+        _build.BUILD.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_build.BUILD)
+        os.close(fd)
+        try:
+            proc = subprocess.run(
+                [_build.nvcc_path(), *_build.NVCC_FLAGS, "-DFD_TRACE=1",
+                 "-o", tmp, str(_build.CSRC / "flash_decode.cu")],
+                capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for the traced "
+                                   f"flash_decode.cu:\n{proc.stderr}")
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    lib = _signatures(ctypes.CDLL(str(path)))
+    lib.flash_decode_trace.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.flash_decode_trace.restype = ctypes.c_int
+    return lib
+
+
+def trace_phases(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 length: torch.Tensor, *,
+                 window: int | None = None) -> torch.Tensor:
+    """Where one dense launch's time goes, block by block: a traced build
+    of the kernel runs ``flash_decode``'s call twice untimed, then once
+    with stamps. Returns (blocks, len(PHASES)) float64 on the CPU, in
+    microseconds from the first block's entry, -1 where a block has no
+    such stamp (no tile); rows in launch order (slot, kv head x head
+    group, cluster rank). Not counted in ``flash_decode.launches``."""
+    _check(q, k, v, length, "trace_phases")
+    if q.device.type != "cuda":
+        raise ValueError("trace_phases: needs CUDA tensors")
+    lib = _trace_lib()
+    for _ in range(2):
+        _launch_dense(lib, q, k, v, length, window)
+    torch.cuda.synchronize(q.device)
+    err = lib.flash_decode_trace(None, 1)
+    if not err:
+        _launch_dense(lib, q, k, v, length, window)
+        torch.cuda.synchronize(q.device)
+        stamps = torch.zeros((TRACE_BLOCKS, len(PHASES)),
+                             dtype=torch.int64)
+        err = lib.flash_decode_trace(stamps.data_ptr(), 0)
+    if err:
+        raise RuntimeError(f"trace_phases: CUDA error {err}")
+    stamps = stamps[:int((stamps[:, 0] > 0).sum())]
+    rel = (stamps - stamps[:, 0].min()).double() / 1e3
+    return torch.where(stamps > 0, rel, -1.0)

@@ -12,8 +12,14 @@ decode steps: 3 untimed, 8 timed with the host clock
 around work that ends in a synchronize, and 8 more under the profiler.
 It prints the step time, the
 device's busy share of the profiled wall time, kernel launches per step,
-the top kernels by device time and the flash-decode kernels' time per
-launch, then one JSON line with the same numbers. Needs a CUDA device.
+the top kernels by device time and the flash-decode kernel's time per
+launch, then one JSON line with the same numbers. ``--kernel-trace``
+adds where one flash-decode launch's time goes, block by block: a
+traced build of the dense kernel (``flash_decode.trace_phases``) runs
+once at the model's attention shape, random q/K/V and the decode's
+cache length, and the median and largest time of each phase over the
+blocks that reach it go into the JSON line (``kernel_trace_us``). Needs
+a CUDA device.
 """
 from __future__ import annotations
 
@@ -33,6 +39,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--block-size", type=int, default=None,
                     help="decode on a paged cache of this block size")
+    ap.add_argument("--kernel-trace", action="store_true",
+                    help="also stamp the phases of one flash-decode launch")
     args = ap.parse_args(argv)
 
     import torch
@@ -41,6 +49,7 @@ def main(argv=None) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_decode
     from repro_torch.models.registry import get_model
 
     if not torch.cuda.is_available():
@@ -87,8 +96,7 @@ def main(argv=None) -> dict:
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
     top = sorted(kernels, key=dev_us, reverse=True)[:TOP]
-    fd = [e for e in kernels if "split_kernel" in e.key
-          or "combine_kernel" in e.key]
+    fd = [e for e in kernels if flash_decode.KERNEL_NAME in e.key]
     fd_us = sum(dev_us(e) for e in fd)
     fd_calls = max((e.count for e in fd), default=0)
     out = {
@@ -106,6 +114,10 @@ def main(argv=None) -> dict:
         "top_kernels": [{"name": e.key[:80], "count": e.count,
                          "device_ms": dev_us(e) / 1e3} for e in top],
     }
+    if args.kernel_trace:
+        out["kernel_trace_us"] = _kernel_trace(cfg, args, flash_decode)
+        print(f"flash-decode phases, us from the first block's entry "
+              f"(median, max over blocks): {out['kernel_trace_us']}")
     paged = f" paged blk={args.block_size}" if args.block_size else ""
     print(f"{cfg.name} decode B={args.slots}{paged}: {step_ms:.2f} ms/step "
           f"(host clock), device busy {out['device_busy_ms_per_step']:.2f} "
@@ -115,6 +127,32 @@ def main(argv=None) -> dict:
     for t in out["top_kernels"]:
         print(f"  {t['device_ms']:9.3f} ms  x{t['count']:<6} {t['name']}")
     print(json.dumps(out))
+    return out
+
+
+def _kernel_trace(cfg, args, flash_decode) -> dict:
+    """``flash_decode.trace_phases`` at the model's attention shape with
+    every slot at the cache length the profiled steps reached: phase ->
+    [median, max] microseconds over the blocks that reach it."""
+    import torch
+    hd = cfg.head_dim or cfg.d_model // cfg.n_heads
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            cfg.torch_dtype)
+    q = randn(args.slots, 1, cfg.n_heads, hd)
+    k = randn(args.slots, args.max_len, cfg.n_kv_heads, hd)
+    v = randn(args.slots, args.max_len, cfg.n_kv_heads, hd)
+    cache_len = min(args.prompt_len + WARMUP + 2 * STEPS, args.max_len)
+    length = torch.full((args.slots,), cache_len, dtype=torch.int32,
+                        device="cuda")
+    stamps = flash_decode.trace_phases(q, k, v, length)
+    out = {}
+    for i, name in enumerate(flash_decode.PHASES):
+        t = stamps[:, i][stamps[:, i] >= 0]
+        out[name] = ([round(float(t.median()), 3), round(float(t.max()), 3)]
+                     if len(t) else None)
     return out
 
 
