@@ -18,12 +18,13 @@ Phases, each of which raises on failure (nothing is caught):
    also be bitwise equal to the dense one on the gathered view; the two
    encode kernels also on constant and heavy-tailed rows, and the device
    time of each of their launches (torch.profiler); both flash-decode
-   kernels must repeat bit for bit, show one device kernel per call in
-   torch.profiler, and are also checked and timed at a long shape
-   (B=4, S_max=8192, lengths [8192, 4096, 2048, 1]) beside SDPA;
+   kernels must repeat bit for bit, show exactly one device record per
+   call in torch.profiler, and are also checked and timed at a long
+   shape (B=4, S_max=8192, lengths [8192, 4096, 2048, 1]) beside SDPA;
 4. reduced models: the reduced INTELLECT-1 served (continuous and paged
    engines) and trained on the card must agree with the same model on
-   the CPU;
+   the CPU; the elastic schedule (below) on the reduced model, int8 and
+   int4 with error feedback, must give the CPU's discrete history;
 5. main path, serving: ``repro_torch.launch.serve`` serves INTELLECT-1
    at full width and depth (random weights from a seed) with the
    continuous, the wave and the paged engine; every request must finish
@@ -40,7 +41,20 @@ Phases, each of which raises on failure (nothing is caught):
    int8 ring, two outer steps; losses must be finite and every codec
    kernel must launch exactly as often per outer sync as the ring's
    formula says; one outer sync is then replayed from the same inputs
-   with the plain codec on the card and the anchors must agree.
+   with the plain codec on the card and the anchors must agree;
+7. main path, elastic training: the trainer's ``run`` on internlm2-1.8b
+   at full width, depth cut to 2, 4 DiLoCo slots (nodes 0-2 live), the
+   int8 ring overlapped with the next inner phase over 7 chunks,
+   contribution validation and a fixed link matrix whose slow edge the
+   identity ring crosses; node 3 joins, node 1's contribution is
+   poisoned and quarantined, node 2 crashes while its sync is in flight.
+   Every event must show in the history, losses must be finite and the
+   codec launches must equal what the ring geometry gives for the
+   reductions that ran (restarts and the torn ring's hops included);
+   the last delayed sync is replayed with the plain codec (anchors
+   within the ring tolerance), and one ``RingSyncOp`` over the
+   full-width rows, stepped one hop at a time, must equal
+   ``simulate_ring_all_reduce`` bit for bit.
 
 The last three lines are the kernels (JSON), the card (name, power
 limit) and the result.
@@ -73,11 +87,24 @@ TRAIN_ARGS = ["--arch", "internlm2-1.8b", "--n-layers", "6", "--workers", "2",
               "--batch-per-worker", "4", "--inner-steps", "4",
               "--outer-steps", "2"]
 CODEC = ("pseudograd_encode_hist", "encode_hist", "decode_add", "decode")
+# the elastic run: internlm2-1.8b at full width on 4 DiLoCo slots, nodes
+# 0-2 live, int8 ring, the sync overlapped with the next inner phase
+# over 2(k-1)+1 = 7 chunks, contribution validation on
+ELASTIC = {"arch": "internlm2-1.8b", "n_layers": 2, "slots": 4, "live": 3,
+           "inner_steps": 7, "inner_chunks": 7, "outer_steps": 5,
+           "seq_len": 512, "batch_per_worker": 4, "inner_lr": 3e-4,
+           "seed": 0}
+# (outer step, kind, node, arg): node 3 joins; node 1's contribution is
+# scaled by 1e6 (flagged, quarantined); node 2 crashes while the sync
+# begun at step 3 is in flight (torn, re-reduced over the survivors)
+ELASTIC_EVENTS = [(1, "join", 3, ""), (2, "poison", 1, "huge"),
+                  (4, "crash", 2, "")]
 # (B, S_max, Hk, G, dh, lengths): INTELLECT-1's attention at a long cache,
 # where the bytes rather than the latency chain should set the pace
 FD_LONG = (4, 8192, 8, 4, 128, [8192, 4096, 2048, 1])
 L2_FLUSH_BYTES = 256 << 20       # > the 50 MB L2: each timed call starts cold
 SPIN_CYCLES = 2_000_000          # ~1 ms at the H100's 1.98 GHz boost clock
+LEAD_SPINS = 4                   # spin kernels opening a profiled window
 
 
 def log(msg: str) -> None:
@@ -197,12 +224,9 @@ def check_repeat_and_close(label, out, again, ref, dtype) -> float:
 
 def one_kernel_per_call(label, fn) -> dict:
     """torch.profiler over ``calls`` calls of ``fn``: the flash-decode
-    kernel is the only device kernel, recorded at most once a call; its
-    device ms per recorded launch. The trace loses records of the paged
-    kernel on the H100 (8 of 10, run after run; the dense kernel's come
-    complete), so fewer records than calls are logged, not failed: a
-    lost record cannot show a second kernel either way. A trace with no
-    record at all (seen once) is taken again, up to three times."""
+    kernel is the only device kernel, recorded exactly once a call; its
+    device ms a launch. A trace with no record at all (seen once) is
+    taken again, up to three times."""
     from repro_torch.kernels import flash_decode as fd
     calls = 10
     for _ in range(3):
@@ -210,7 +234,7 @@ def one_kernel_per_call(label, fn) -> dict:
         if kernels:
             break
     if (len(kernels) != 1 or fd.KERNEL_NAME not in kernels[0][0]
-            or kernels[0][1] > calls):
+            or kernels[0][1] != calls):
         raise AssertionError(f"{label}: want one {fd.KERNEL_NAME} launch a "
                              f"call, torch.profiler saw {kernels} over "
                              f"{calls} calls")
@@ -220,6 +244,69 @@ def one_kernel_per_call(label, fn) -> dict:
     log(f"kernel {label} launches, device ms per call (torch.profiler, "
         f"{recorded} of {calls} launches recorded): {json.dumps(split)}")
     return split
+
+
+def kernel_records(run) -> dict:
+    """Over one ``run()`` under ``torch.profiler``, from its raw events
+    rather than ``key_averages()``: the device records by kind (paged or
+    dense flash-decode, spin, other), how many of them have no self
+    device time, and the CPU launch calls."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kinds, zero, launches = Counter(), 0, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kinds["spin" if "spin" in e.name else "paged"
+                  if ", true>" in e.name else "dense"
+                  if "flash_decode_kernel" in e.name else "other"] += 1
+            zero += e.self_device_time_total <= 0
+        elif "LaunchKernel" in e.name:
+            launches += 1
+    return {"records": dict(kinds), "zero_time": zero,
+            "launch_calls": launches}
+
+
+def paged_record_loss(q, kp, vp, table, length) -> dict:
+    """What torch.profiler records of the flash-decode kernels with no
+    lead kernels in the window: over 10, 20 and 40 paged calls, 10 paged
+    calls alternating with the dense kernel, 10 paged calls after 4 spin
+    kernels, and 10 dense calls. Call i takes q * (1 + i/64); every
+    output is checked bitwise against the dense kernel on the gathered
+    view afterwards, so a call whose record is missing is still shown
+    to have run."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models.attention import PagedKVCache, paged_view
+    view = paged_view(PagedKVCache(kp, vp, table, length))
+    out = {}
+    for calls, mode in ((10, ""), (20, ""), (40, ""), (10, "alternating"),
+                        (10, "after 4 spins"), (10, "dense only")):
+        qs = [q * (1 + i / 64) for i in range(calls)]
+        want = [fd.flash_decode(qi, view.k, view.v, length) for qi in qs]
+        got = []
+
+        def run():
+            if mode == "after 4 spins":
+                for _ in range(4):
+                    torch.cuda._sleep(1000)
+            for qi in qs:
+                if mode == "dense only":
+                    got.append(fd.flash_decode(qi, view.k, view.v, length))
+                    continue
+                got.append(fd.flash_decode_paged(qi, kp, vp, table, length))
+                if mode == "alternating":
+                    fd.flash_decode(qi, view.k, view.v, length)
+        out[f"{calls} {mode}".strip()] = dict(
+            kernel_records(run), calls=calls,
+            outputs_right=sum(torch.equal(g, w) for g, w in zip(got, want)))
+    log(f"flash-decode under torch.profiler, no lead kernels: "
+        f"{json.dumps(out)}")
+    return out
 
 
 def check_flash_decode_paged() -> dict:
@@ -310,6 +397,8 @@ def check_flash_decode_paged() -> dict:
         result["launch_split_ms"] = one_kernel_per_call(
             "flash_decode_paged serve-bf16",
             lambda: fd.flash_decode_paged(q, kp, vp, table, length))
+        result["profiler_records"] = paged_record_loss(q, kp, vp, table,
+                                                       length)
     result.update(flash_decode_paged_long())
     return result
 
@@ -869,20 +958,26 @@ def check_int8_codec() -> list[dict]:
 
 def device_kernels(fn, calls: int) -> list[tuple[str, int, float]]:
     """(name, launches, device ms) of each kernel that ``calls`` calls
-    of ``fn()`` launch, from ``torch.profiler``."""
+    of ``fn()`` launch, from ``torch.profiler``. The window opens with
+    ``LEAD_SPINS`` spin kernels, left out of the result: on the H100 a
+    window may lose its first device records (none or two of them, of
+    whatever kernel comes first: ``paged_record_loss``), and the spins
+    take that loss in place of the kernels counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(LEAD_SPINS):
+            torch.cuda._sleep(1000)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     return [(e.key, e.count, e.self_device_time_total / 1e3)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0 and "spin" not in e.key]
 
 
 def launch_split_ms(fn, calls: int = 5) -> dict:
@@ -1043,6 +1138,7 @@ def check_reduced_trainer() -> None:
     log(f"reduced intellect-1 trainer GPU vs CPU: losses rtol 1e-4, "
         f"anchor max|err|={worst:.3g} (bound {bound:.3g}), "
         f"flipped {flipped:.2e}")
+    check_reduced_elastic()
 
 
 def train_main_path() -> dict:
@@ -1120,6 +1216,349 @@ def replay_outer_sync(tr) -> dict:
     return {"kernel_s": t1 - t0, "plain_s": t2 - t1, "max_err": worst}
 
 
+def elastic_bandwidth(k: int):
+    """A fixed link matrix (Gb/s): 10 everywhere but the 0-1 link at 1,
+    which the identity ring crosses, so the monitor reorders once."""
+    import numpy as np
+    w = np.full((k, k), 10.0)
+    w[0, 1] = w[1, 0] = 1.0
+    np.fill_diagonal(w, 0.0)
+    return w
+
+
+def elastic_trainer(model, params, *, quant="int8", ef=False, seq_len,
+                    batch_per_worker, inner_steps, inner_chunks, slots=4,
+                    live=3, inner_lr=3e-4):
+    """The elastic schedule's trainer: ``ELASTIC_EVENTS`` on ``slots``
+    slots, nodes 0..live-1 live, the delayed overlap, validation on."""
+    from repro_torch.core.diloco import DiLoCoConfig
+    from repro_torch.core.fault_tolerance import (ClusterSimulator,
+                                                  EventKind, NodeEvent)
+    from repro_torch.core.validation import ValidationConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train.loop import ElasticTrainer, TrainerConfig
+    events = [NodeEvent(t, EventKind(kind), nid, arg)
+              for t, kind, nid, arg in ELASTIC_EVENTS]
+    return ElasticTrainer(
+        model, TrainerConfig(
+            DiLoCoConfig(inner_steps=inner_steps, quant=quant,
+                         overlap="delayed", error_feedback=ef),
+            inner_lr=inner_lr, max_workers=slots, inner_chunks=inner_chunks,
+            validation=ValidationConfig()),
+        DataConfig(vocab=model.cfg.vocab, seq_len=seq_len,
+                   batch_per_worker=batch_per_worker,
+                   total_steps=ELASTIC["outer_steps"] * inner_steps),
+        params, ClusterSimulator(range(live), events=events))
+
+
+def check_elastic_events(label, hist, tr) -> None:
+    """Each event of ``ELASTIC_EVENTS`` shows in the history: the join,
+    the flagged and quarantined node, the torn sync's fallback; and the
+    ring was reordered off the identity."""
+    got = {"joined": hist[1]["joined"],
+           "quarantined": hist[2].get("admission", {}).get("quarantined"),
+           "rejected": "rejected" in hist[2].get("overlap", {}),
+           "torn_by": hist[4].get("sync_fallback", {}).get("torn_by"),
+           "reorders": tr.reorders,
+           "identity_ring": hist[0]["ring_order"] == tuple(range(tr.k))}
+    want = {"joined": [3], "quarantined": [1], "rejected": True,
+            "torn_by": [2], "reorders": 1, "identity_ring": False}
+    if got != want:
+        raise AssertionError(f"{label}: events {got}, want {want}")
+
+
+def elastic_launches(hist, tr) -> dict:
+    """Codec launches the ring geometry gives for the reductions of an
+    elastic run: a whole reduction for every sync begun and finished,
+    for every sanitized or torn sync's restart, and the hops a torn
+    ring had dispatched before it tore."""
+    from repro_torch.core import diloco as dl
+    from repro_torch.core import ring_reduce as rr
+    ring, fused = tr.cfg.diloco.ring, dl._fused_src_ok(tr.cfg.diloco)
+    parts = []
+    for t, rec in enumerate(hist):
+        if "rejected" in rec["overlap"]:
+            parts.append(rr.codec_calls(tr.k, ring, fused))      # restart
+            continue
+        nxt = hist[t + 1] if t + 1 < len(hist) else {}
+        torn = nxt.get("sync_fallback")
+        if torn is not None:
+            parts.append(rr.codec_calls(tr.k, ring, fused,
+                                        hops=torn["hops_done"]))
+        parts.append(rr.codec_calls(tr.k, ring, fused))
+    return {name: sum(p[name] for p in parts) for name in CODEC}
+
+
+@contextlib.contextmanager
+def ring_bounds(bounds: list, outer_lr: float, outer_momentum: float):
+    """Append, for every ring reduction that finishes (restarts too),
+    what a flipped code can move the anchor by: ``ring_bound``'s rule on
+    the reduction's own rows and weights (16 buckets for int4)."""
+    from repro_torch.core import ring_reduce as rr
+    finish = rr.RingSyncOp.finish
+
+    def bounded(op):
+        if op._out is None and op.k > 1:
+            w = op.weights.float()
+            stds = torch.stack([torch.std(w[i] * op.xs[i], correction=0)
+                                for i in range(op.k)])
+            width = 12.0 * float(stds.sum()) / (
+                16 if op.cfg.quant == "int4" else 256)
+            bounds.append(outer_lr * (1 + outer_momentum) * op.k * width
+                          / max(float(w.sum()), 1e-20))
+        return finish(op)
+    rr.RingSyncOp.finish = bounded
+    try:
+        yield bounds
+    finally:
+        rr.RingSyncOp.finish = finish
+
+
+def check_reduced_elastic() -> None:
+    """The elastic schedule on the reduced INTELLECT-1 (fp32), card
+    against CPU from the same weights and batches, int8 and int4 with
+    error feedback: the discrete fields equal, per-slot losses within
+    rtol 1e-4, final anchors under the ring tolerance (the bound of
+    every reduction, scaled once more by the outer step)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+    cfg = get_config("intellect-1").reduced()
+    params = get_model(cfg, "cpu").init(0)
+    keys = ("outer_step", "live", "joined", "left", "attempts",
+            "wire_bytes", "ring_order", "admission")
+    for quant, ef in (("int8", False), ("int4", True)):
+        runs, bounds = {}, []
+        for dev in ("cpu", "cuda"):
+            tr = elastic_trainer(get_model(cfg, dev), params, quant=quant,
+                                 ef=ef, seq_len=32, batch_per_worker=2,
+                                 inner_steps=7, inner_chunks=7, inner_lr=3e-3)
+            losses, inner = [], tr._run_inner_phase
+
+            def run_inner(b, a, inner=inner, losses=losses):
+                losses.append(inner(b, a))
+                return losses[-1]
+            tr._run_inner_phase = run_inner
+            with ring_bounds(bounds if dev == "cuda" else [], 0.7, 0.9):
+                hist = tr.run(ELASTIC["outer_steps"],
+                              bandwidth_sampler=lambda t: elastic_bandwidth(4))
+            check_elastic_events(f"reduced elastic {quant} {dev}", hist, tr)
+            disc = [({k: h[k] for k in keys},
+                     h.get("sync_fallback", {}).get("torn_by")) for h in hist]
+            runs[dev] = (disc, torch.cat(losses).cpu(),
+                         tr.outer.anchor_flat.cpu(), tr.quarantine_events)
+        (dc, lc, ac, qc), (dg, lg, ag, qg) = runs["cpu"], runs["cuda"]
+        if dg != dc or qg != qc:
+            raise AssertionError(f"reduced elastic {quant}: GPU history "
+                                 f"{dg} {qg} vs CPU {dc} {qc}")
+        live = ~torch.isnan(lc)
+        if not torch.equal(live, ~torch.isnan(lg)) or not torch.allclose(
+                lg[live], lc[live], rtol=1e-4, atol=0.0):
+            raise AssertionError(f"reduced elastic {quant}: GPU vs CPU "
+                                 f"losses {lg.tolist()} vs {lc.tolist()}")
+        bound = (1 + 0.9) * sum(bounds)
+        worst, flipped = check_anchor(f"reduced elastic {quant}", ag, ac,
+                                      bound)
+        log(f"reduced intellect-1 elastic {quant}{' + EF' if ef else ''} "
+            f"GPU vs CPU: discrete fields equal ({len(dg)} steps, "
+            f"{len(qg)} quarantine events), losses rtol 1e-4, anchor "
+            f"max|err|={worst:.3g} (bound {bound:.3g}), flipped "
+            f"{flipped:.2e}, {int(np.asarray(live).sum())} live losses")
+
+
+def codec_counts() -> dict:
+    from repro_torch.kernels import int8_quant as iq
+    return {name: getattr(iq, name).launches for name in CODEC}
+
+
+def train_elastic() -> dict:
+    """The elastic main path at full width (``ELASTIC``): the trainer's
+    ``run`` with ``ELASTIC_EVENTS`` and ``elastic_bandwidth``; every
+    codec count is set to 0 just before and read just after. A boundary
+    hook reads the launches and the peak memory of each outer step and
+    keeps the inputs of the last delayed sync for the plain-codec
+    replay."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import diloco as dl
+    from repro_torch.core.sync_engine import leaves
+    from repro_torch.kernels import int8_quant as iq
+    from repro_torch.models.registry import get_model
+    e = ELASTIC
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(e["arch"]), n_layers=e["n_layers"])
+    model = get_model(cfg, "cuda")
+    tr = elastic_trainer(model, model.init(e["seed"]),
+                         seq_len=e["seq_len"],
+                         batch_per_worker=e["batch_per_worker"],
+                         inner_steps=e["inner_steps"],
+                         inner_chunks=e["inner_chunks"], slots=e["slots"],
+                         live=e["live"], inner_lr=e["inner_lr"])
+    steps, last, capture = [], dict.fromkeys(CODEC, 0), {}
+    finish = dl.finish_outer_sync_sim
+
+    def hook(t, trainer):
+        now = codec_counts()
+        steps.append({"launches": {n: now[n] - last[n] for n in CODEC},
+                      "peak_bytes": torch.cuda.max_memory_allocated(),
+                      **parts})
+        parts.update(poison_s=0.0, admission_s=0.0)
+        last.update(now)
+        capture["armed"] = t == e["outer_steps"] - 1   # the drain is next
+
+    def finish_and_keep(h, params, state):
+        out = finish(h, params, state)
+        if capture.pop("armed", False):
+            capture.update(handle=h, state=state, anchor=out[1].anchor_flat)
+        return out
+    parts = {"poison_s": 0.0, "admission_s": 0.0}
+
+    def timed(name, fn):
+        def call(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            parts[name] += time.perf_counter() - t0
+            return out
+        return call
+    tr._apply_poison = timed("poison_s", tr._apply_poison)
+    tr._admission_check = timed("admission_s", tr._admission_check)
+    tr.boundary_hook = hook
+    dl.finish_outer_sync_sim = finish_and_keep
+    torch.cuda.reset_peak_memory_stats()
+    for name in CODEC:
+        getattr(iq, name).launches = 0
+    t0 = time.perf_counter()
+    try:
+        hist = tr.run(e["outer_steps"],
+                      bandwidth_sampler=lambda t: elastic_bandwidth(tr.k))
+        launches = codec_counts()
+        torch.cuda.synchronize()
+    finally:
+        dl.finish_outer_sync_sim = finish
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check_elastic_events("elastic main path", hist, tr)
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"elastic: non-finite loss {hist}")
+    want = elastic_launches(hist, tr)
+    if launches != want:
+        raise AssertionError(f"elastic: codec launches {launches}, want "
+                             f"{want} from the ring geometry")
+    n_params = sum(p[0].numel() for p in leaves(tr.params))
+    drain = {n: launches[n] - last[n] for n in CODEC}
+    for h, st in zip(hist, steps):
+        ov = h["overlap"]
+        led = ov.get("prev") or ov.get("rejected") or {}
+        extra = ""
+        if "rejected" in ov:
+            extra += f" rejected(flagged={h['admission']['flagged']})"
+        if "sync_fallback" in h:
+            extra += (f" torn_by={h['sync_fallback']['torn_by']} after "
+                      f"{h['sync_fallback']['hops_done']} hop(s)")
+        log(f"elastic step {h['outer_step']}: live={h['live']} "
+            f"joined={h['joined']} left={h['left']} loss={h['loss']:.4f} "
+            f"ring={list(h['ring_order'])} inner={h['inner_s'] * 1e3:.1f}ms "
+            f"chunks_ms={[round(c * 1e3, 1) for c in h['inner_chunk_s']]} "
+            f"hops_ms={[round(c * 1e3, 1) for c in h['inner_hop_s']]} "
+            f"boundary={h['sync_s'] * 1e3:.1f}ms (poison "
+            f"{st['poison_s'] * 1e3:.1f}ms, admission "
+            f"{st['admission_s'] * 1e3:.1f}ms) ledger hidden="
+            f"{led.get('comm_hidden_s', 0.0):.6f}s exposed="
+            f"{led.get('comm_exposed_s', 0.0):.6f}s launches="
+            f"{json.dumps(st['launches'])} peak="
+            f"{st['peak_bytes'] / 2**30:.2f}GiB{extra}")
+    dr = hist[-1]["overlap"]["drain"]
+    log(f"elastic drain: {hist[-1]['drain_s'] * 1e3:.1f}ms ledger hidden="
+        f"{dr['comm_hidden_s']:.6f}s exposed={dr['comm_exposed_s']:.6f}s "
+        f"launches={json.dumps(drain)}")
+    log(f"elastic main path: {e['arch']} depth {e['n_layers']} "
+        f"params={n_params} slots={tr.k} launches={json.dumps(launches)} "
+        f"(= ring geometry) quarantine_events={tr.quarantine_events} "
+        f"hidden_fraction={tr.comm_ledger.hidden_fraction:.3f} "
+        f"peak_mem={peak / 2**30:.2f}GiB wall={wall:.1f}s")
+    return {"history": hist, "trainer": tr, "launches": launches,
+            "peak_bytes": peak, "params": n_params, "capture": capture,
+            "wall_s": wall}
+
+
+def replay_elastic(run) -> dict:
+    """The last delayed sync (drained at the end of the run) again from
+    its retained inputs, with the plain codec on the card: the anchor
+    within the ring tolerance of the kernels' one."""
+    from repro_torch.core import diloco as dl
+    from repro_torch.core import ring_reduce as rr
+    cap, tr = run["capture"], run["trainer"]
+    h, state = cap.pop("handle"), cap.pop("state")
+    bounds = []
+    t0 = time.perf_counter()
+    with plain_codec(), ring_bounds(bounds, tr.cfg.diloco.outer_lr,
+                                    tr.cfg.diloco.outer_momentum):
+        reduced = rr.simulate_ring_all_reduce(
+            h.op.xs, h.op.ring_order, h.op.cfg, h.weights, h.op.fused_src)
+        _, replayed = dl._finish_apply(h, reduced, tr.params, state)
+        torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    del reduced, h, state
+    worst, flipped = check_anchor("elastic replay, kernels vs plain",
+                                  cap.pop("anchor"), replayed.anchor_flat,
+                                  bounds[0])
+    del replayed
+    log(f"elastic replay of the last delayed sync with the plain codec: "
+        f"{plain_s * 1e3:.1f} ms; anchor max|err|={worst:.3g} (bound "
+        f"{bounds[0]:.3g}), flipped {flipped:.2e}")
+    torch.cuda.empty_cache()
+    return {"plain_s": plain_s, "max_err": worst}
+
+
+def stepped_ring_bitwise(run) -> dict:
+    """One more inner step gives the slots distinct parameters; a
+    ``RingSyncOp`` over their full-width rows, stepped one hop at a time
+    with a matmul between hops, launches ``codec_calls`` codec kernels
+    and equals ``simulate_ring_all_reduce`` bit for bit."""
+    from repro_torch.core import diloco as dl
+    from repro_torch.core import ring_reduce as rr
+    tr = run["trainer"]
+    live = tr.sim.hb.live_ids()
+    batches = {key: v[None].to(tr.device) for key, v in
+               tr._batches(tr.cfg.diloco.inner_steps * 10).items()}
+    tr._run_inner_phase(batches, tr.slots.live_mask(live))
+    tr.opt_state = None                       # the ring needs no AdamW
+    torch.cuda.empty_cache()
+    weights = torch.as_tensor(tr.slots.live_mask(live), device=tr.device)
+    h = dl.begin_outer_sync_sim(tr.params, tr.outer, tr.cfg.diloco,
+                                ring_order=tr._ring_for_sync(),
+                                weights=weights)
+    noise = torch.randn(4096, 4096, device=tr.device)
+    before = codec_counts()
+    t0 = time.perf_counter()
+    while h.step():
+        noise = noise @ noise.T / 4096        # other work between hops
+    got = h.op.finish()
+    torch.cuda.synchronize()
+    stepped_s = time.perf_counter() - t0
+    launches = {n: codec_counts()[n] - before[n] for n in CODEC}
+    want_launches = rr.codec_calls(tr.k, tr.cfg.diloco.ring, True)
+    if launches != want_launches:
+        raise AssertionError(f"stepped ring: launches {launches}, want "
+                             f"{want_launches}")
+    want = rr.simulate_ring_all_reduce(h.op.xs, h.op.ring_order, h.op.cfg,
+                                       h.weights, h.op.fused_src)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("stepped ring: not bitwise equal to "
+                             "simulate_ring_all_reduce")
+    shape = tuple(h.op.xs.shape)
+    del got, want, h, noise
+    torch.cuda.empty_cache()
+    log(f"stepped RingSyncOp at the full-width rows {shape}: bitwise equal "
+        f"to simulate_ring_all_reduce, launches {json.dumps(launches)} "
+        f"(= codec_calls), {stepped_s * 1e3:.1f} ms with a matmul between "
+        f"hops")
+    return {"shape": shape, "launches": launches}
+
+
 def main() -> None:
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False     # fp32 stays fp32
@@ -1168,6 +1607,15 @@ def main() -> None:
         f"{train['peak_bytes'] / 2**30:.2f} GiB")
     replay_outer_sync(train["trainer"])
     del train
+    gc.collect()
+    elastic = train_elastic()
+    replay_elastic(elastic)
+    stepped_ring_bitwise(elastic)
+    for entry in kernels[1:5]:
+        entry["launches_elastic"] = elastic["launches"][entry["name"]]
+    del elastic
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

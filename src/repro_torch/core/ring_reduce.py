@@ -15,40 +15,50 @@ stacked single-process simulator (port of ``repro.core.ring_reduce``).
     their own codebooks; the reduce-scatter receive is the fused
     ``ops.dequantize_add``; with ``fused_src=(anchor_flat, thetas)`` the
     first hop quantizes straight off the model buffers through
-    ``ops.quantize_pseudograd``.
+    ``ops.quantize_pseudograd``;
+  * ``quant="int4"`` carries ``core/compression.py``'s packed codes
+    (plain PyTorch on either device, as the JAX package's is plain
+    ``jnp``); ``"fp32"`` is the paper's uncompressed baseline.
+
+``RingSyncOp`` splits the all-reduce at wire-hop granularity so a
+training loop can dispatch one hop between inner-phase chunks (the
+overlapped outer sync); it retains its inputs so a torn or sanitized
+reduction can ``restart`` from them. ``simulate_ring_all_reduce`` is the
+same op run to its end in one call, so the two agree bit for bit.
 
 One call of a codec op covers all k rows (the JAX package ``vmap``s
-per-row calls), so with k workers and nb buckets one all-reduce makes
-``nb`` fused-encode, ``nb*(k-1)`` encode, ``nb*(k-1)`` decode_add and
-``nb*k`` decode calls on the fused main path (``codec_calls``). The
-accumulator is updated in place. The distributed ring
-(``ring_all_reduce``), the hop-steppable ``RingSyncOp`` and the
-chunk-norm sideband are not ported yet.
+per-row calls), so with k workers and nb buckets one int8 all-reduce
+makes ``nb`` fused-encode, ``nb*(k-1)`` encode, ``nb*(k-1)`` decode_add
+and ``nb*k`` decode calls on the fused main path (``codec_calls``, hop
+by hop ``hop_codec_calls``). The accumulator is updated in place.
+``chunk_norms`` is the admission layer's per-chunk norm sideband,
+computed in fp64 on the rows' own device. The distributed ring
+(``ring_all_reduce``) is not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import compression
 from repro_torch.kernels import ops as qops
 from repro_torch.kernels.ref import NUM_BUCKETS
+
+CODEC = ("pseudograd_encode_hist", "encode_hist", "decode_add", "decode")
+# columns per fp64 block of the sideband passes: k x 4 Mi x 8 bytes
+_NORM_BLOCK = 1 << 22
 
 
 @dataclasses.dataclass(frozen=True)
 class RingConfig:
-    quant: str = "int8"          # 'int8' | 'fp32' (paper baseline)
+    quant: str = "int8"          # 'int8' | 'fp32' (paper baseline) | 'int4'
     average: bool = True
     buckets: int = 1             # sub-buckets per chunk-hop
     fused: bool = True           # fused dequantize_add / pseudograd tx
-
-    def __post_init__(self):
-        if self.quant not in ("int8", "fp32"):
-            raise NotImplementedError(
-                f"ring quant {self.quant!r} is not ported yet (int4 comes "
-                "with core/compression.py in a later slice)")
 
 
 def _bytes_per_elem(quant: str) -> float:
@@ -77,19 +87,36 @@ def ring_wire_bytes(numel: int, n_workers: int, quant: str = "int8",
                * ring_hop_bytes(numel, n_workers, quant, buckets))
 
 
-def codec_calls(k: int, cfg: RingConfig = RingConfig(),
-                fused_src: bool = True) -> dict:
-    """Codec wrapper calls of one int8 all-reduce over a ring of k
-    (``fused_src``: the caller passes ``fused_src`` to the simulator)."""
+def hop_codec_calls(hop: int, k: int, cfg: RingConfig = RingConfig(),
+                    fused_src: bool = True) -> dict:
+    """Codec wrapper calls of wire hop ``hop`` (0 <= hop < 2(k-1)) of one
+    int8 all-reduce over a ring of k: hops below k-1 reduce-scatter (hop
+    0 transmits through the fused encode when the caller passes
+    ``fused_src``); hop k-1 also carries the owners' quantization."""
+    calls = dict.fromkeys(CODEC, 0)
     if k <= 1 or cfg.quant != "int8":
-        return {"pseudograd_encode_hist": 0, "encode_hist": 0,
-                "decode_add": 0, "decode": 0}
+        return calls
     nb = max(1, cfg.buckets)
-    tx = nb if (cfg.fused and fused_src) else 0
-    rx = nb * (k - 1)
-    return {"pseudograd_encode_hist": tx, "encode_hist": nb * k - tx,
-            "decode_add": rx if cfg.fused else 0,
-            "decode": nb * k + (0 if cfg.fused else rx)}
+    if hop < k - 1:
+        fused_tx = hop == 0 and cfg.fused and fused_src
+        calls["pseudograd_encode_hist" if fused_tx else "encode_hist"] = nb
+        calls["decode_add" if cfg.fused else "decode"] = nb
+    else:
+        if hop == k - 1:
+            calls["encode_hist"] = calls["decode"] = nb
+        calls["decode"] += nb
+    return calls
+
+
+def codec_calls(k: int, cfg: RingConfig = RingConfig(),
+                fused_src: bool = True, hops: int | None = None) -> dict:
+    """Codec wrapper calls of the first ``hops`` wire hops (default:
+    all 2(k-1), one whole int8 all-reduce) over a ring of k."""
+    total = dict.fromkeys(CODEC, 0)
+    for hop in range(2 * (k - 1) if hops is None else hops):
+        for name, n in hop_codec_calls(hop, k, cfg, fused_src).items():
+            total[name] += n
+    return total
 
 
 # -- chunk/bucket helpers -----------------------------------------------------
@@ -127,18 +154,25 @@ def _set_bucket_rows(accs, idxs, b: int, vals, nb: int, bsize: int):
     return accs
 
 
-def _row_deq(cfg: RingConfig):
+def _row_deq(cfg: RingConfig, bsize: int):
+    """Row-wise dequant fn for (k, bsize) stacked payloads."""
     if cfg.quant == "fp32":
         return lambda p: p[0]
+    if cfg.quant == "int4":
+        return lambda p: compression.dequantize4(
+            compression.Quantized4(*p), bsize)
     return lambda p: qops.dequantize(qops.Quantized(*p))
 
 
 def _quant_rows(vals: torch.Tensor, cfg: RingConfig):
     """Row-wise transmit quantization of (k, bsize) buckets -> (payload
     tuple, row-wise dequant fn)."""
+    bsize = vals.shape[-1]
     if cfg.quant == "fp32":
-        return (vals,), _row_deq(cfg)
-    return tuple(qops.quantize(vals)), _row_deq(cfg)
+        return (vals,), _row_deq(cfg, bsize)
+    if cfg.quant == "int4":
+        return tuple(compression.quantize4(vals)), _row_deq(cfg, bsize)
+    return tuple(qops.quantize(vals)), _row_deq(cfg, bsize)
 
 
 def _rx_add_rows(payload, deq, acc_vals: torch.Tensor, cfg: RingConfig):
@@ -170,7 +204,7 @@ def _rs_hop_rows(s: int, accs, k: int, bsize: int, nb: int,
             a_rows = a_flat.view(-1, bsize)[_bucket_index(send_idx, b, nb)]
             t_rows = _get_bucket_rows(t_pos, send_idx, b, nb, bsize)
             q = qops.quantize_pseudograd(a_rows, t_rows, scale=w_pos)
-            staged.append((tuple(q), _row_deq(cfg)))
+            staged.append((tuple(q), _row_deq(cfg, bsize)))
         else:
             staged.append(_quant_rows(
                 _get_bucket_rows(accs, send_idx, b, nb, bsize), cfg))
@@ -201,7 +235,7 @@ def _ag_hop_rows(s: int, accs, payloads, k: int, bsize: int, nb: int,
     """One all-gather hop: shift every bucket's forwarded codes one
     position and decode in place."""
     recv_idx = torch.remainder(torch.arange(k, device=accs.device) - s, k)
-    deq = _row_deq(cfg)
+    deq = _row_deq(cfg, bsize)
     new_payloads = []
     for b in range(nb):
         payload = _roll1(payloads[b])
@@ -210,62 +244,184 @@ def _ag_hop_rows(s: int, accs, payloads, k: int, bsize: int, nb: int,
     return accs, tuple(new_payloads)
 
 
+def _permute_rows_(x: torch.Tensor, src: Sequence[int]) -> None:
+    """``x[w] = x[src[w]]`` for every row w, in place, one row of
+    scratch per cycle of the permutation."""
+    done = [False] * len(src)
+    for start in range(len(src)):
+        if done[start] or src[start] == start:
+            continue
+        tmp, w = x[start].clone(), start
+        while True:
+            done[w] = True
+            if src[w] == start:
+                x[w].copy_(tmp)
+                break
+            x[w].copy_(x[src[w]])
+            w = src[w]
+
+
+class RingSyncOp:
+    """The ring all-reduce over (k, D) stacked per-worker vectors, one
+    wire hop per ``step()`` (port of ``repro.core.ring_reduce.
+    RingSyncOp``): (k-1) reduce-scatter hops, then (k-1) all-gather
+    forwards, the owners' quantization riding with the first.
+    ``finish()`` drains the rest and returns the (k, D) result,
+    identical across workers. ``fused_src=(anchor_flat, thetas)``
+    (``anchor_flat`` (D,) shared, ``thetas`` (k, D) in any float dtype)
+    mirrors the fused first-hop transmit.
+
+    The op RETAINS its inputs (``xs``, ``weights``, ``fused_src``) and
+    owns them: ``xs`` is not copied when it is fp32 already, and
+    ``OuterSyncHandle.sanitize`` writes it in place. A worker dying
+    mid-overlap leaves the accumulator torn, so recovery re-reduces the
+    retained rows over the survivors (``restart``). The accumulator and
+    the padded transmit copies are built at the first hop, not here, so
+    a staged op holds only its inputs until the ring starts.
+    """
+
+    def __init__(self, xs: torch.Tensor,
+                 ring_order: Sequence[int] | None = None,
+                 cfg: RingConfig = RingConfig(),
+                 weights: torch.Tensor | None = None,
+                 fused_src=None):
+        k, orig_size = xs.shape
+        self.k, self.orig_size, self.cfg = k, orig_size, cfg
+        self.xs = xs.float()
+        self.weights = (torch.ones((k,), dtype=torch.float32,
+                                   device=xs.device) if weights is None
+                        else weights.float())
+        self.ring_order = (tuple(ring_order) if ring_order is not None
+                           else tuple(range(k)))
+        if sorted(self.ring_order) != list(range(k)):
+            raise ValueError(f"ring order {self.ring_order} is not a "
+                             "permutation")
+        self.fused_src = fused_src
+        self._total_w = self.weights.sum()
+        self.hops_done = 0
+        self.hops_total = 2 * (k - 1) if k > 1 else 0
+        self._accs = self._payloads = self._fused_ops = None
+        self._out: torch.Tensor | None = None
+
+    @property
+    def pending(self) -> bool:
+        return self.hops_done < self.hops_total
+
+    def _stage(self) -> None:
+        """Position-major weighted accumulators (row p belongs to worker
+        ring_order[p]) and the fused transmit's padded operands."""
+        k, cfg = self.k, self.cfg
+        perm = torch.as_tensor(self.ring_order, device=self.xs.device)
+        self._nb = nb = max(1, cfg.buckets)
+        w_pos = self.weights[perm]
+        self._accs, _, self._bsize = _pad_to_chunks(
+            self.xs[perm] * w_pos[:, None], k, nb)
+        if (self.fused_src is not None and cfg.fused
+                and cfg.quant == "int8"):
+            a_flat, thetas = self.fused_src
+            pad = self._accs.shape[-1] - self.orig_size
+            a_flat = a_flat.float()
+            # an identity ring reads the caller's rows without a copy;
+            # thetas keep their dtype (the encode widens them exactly)
+            t_pos = (thetas if self.ring_order == tuple(range(k))
+                     else thetas[perm])
+            if pad:
+                a_flat = F.pad(a_flat, (0, pad))
+                t_pos = F.pad(t_pos, (0, pad))
+            self._fused_ops = (a_flat, t_pos, w_pos)
+
+    def step(self) -> bool:
+        """Dispatch ONE wire hop (asynchronous device work); True iff a
+        hop was dispatched."""
+        if self._out is not None or not self.pending:
+            return False
+        if self.hops_done == 0:
+            self._stage()
+        i, k = self.hops_done, self.k
+        geom = (k, self._bsize, self._nb, self.cfg)
+        if i < k - 1:
+            _rs_hop_rows(i, self._accs, *geom, self._fused_ops)
+            self._fused_ops = None           # free the padded copies
+        else:
+            s = i - (k - 1)
+            if s == 0:
+                self._accs, self._payloads = _ag_init_rows(self._accs,
+                                                           *geom)
+            self._accs, self._payloads = _ag_hop_rows(
+                s, self._accs, self._payloads, *geom)
+        self.hops_done += 1
+        return True
+
+    def finish(self) -> torch.Tensor:
+        """Drain any remaining hops and return the (k, D) reduced result
+        (identical rows across workers)."""
+        if self._out is not None:
+            return self._out
+        if self.k == 1:
+            self._out = (self.xs * self.weights[:, None]
+                         / self._total_w.clamp_min(1e-20)
+                         if self.cfg.average else self.xs)
+            return self._out
+        while self.step():
+            pass
+        out = self._accs[:, :self.orig_size]
+        self._accs = self._payloads = None
+        if self.cfg.average:
+            out.div_(self._total_w.clamp_min(1e-20))
+        # out[worker w] from ring position inv[w]
+        _permute_rows_(out, np.argsort(self.ring_order).tolist())
+        self._out = out
+        return out
+
+    def restart(self, weights: torch.Tensor) -> torch.Tensor:
+        """Torn-reduction fallback: re-reduce the RETAINED inputs under
+        ``weights`` (dead workers zeroed) in one call, discarding the
+        partial accumulator. Returns the (k, D) reduced result."""
+        self._accs = self._payloads = self._fused_ops = None
+        return simulate_ring_all_reduce(
+            self.xs, ring_order=self.ring_order, cfg=self.cfg,
+            weights=weights, fused_src=self.fused_src)
+
+    def norm_sideband(self) -> np.ndarray:
+        """(k, k * buckets) per-chunk norm sideband of the retained
+        inputs (:func:`chunk_norms`) for the admission layer."""
+        return chunk_norms(self.xs, self.cfg.buckets)
+
+
 def simulate_ring_all_reduce(xs: torch.Tensor,
                              ring_order: Sequence[int] | None = None,
                              cfg: RingConfig = RingConfig(),
                              weights: torch.Tensor | None = None,
                              fused_src=None) -> torch.Tensor:
-    """Single-process ring over (k, D) stacked per-worker vectors.
-    Returns (k, D) results, identical across workers.
-    ``fused_src=(anchor_flat, thetas)`` (``anchor_flat`` (D,) shared,
-    ``thetas`` (k, D)) mirrors the fused first-hop transmit."""
-    k, orig_size = xs.shape
-    xs = xs.float()
-    if weights is None:
-        weights = torch.ones((k,), dtype=torch.float32, device=xs.device)
-    weights = weights.float()
-    total_w = weights.sum()
-    if k == 1:
-        return (xs * weights[:, None] / total_w.clamp_min(1e-20)
-                if cfg.average else xs)
+    """Single-process ring over (k, D) stacked per-worker vectors, all
+    hops in one call (``RingSyncOp`` run to its end). Returns (k, D)
+    results, identical across workers."""
+    return RingSyncOp(xs, ring_order, cfg, weights, fused_src).finish()
 
-    order = tuple(ring_order) if ring_order is not None else tuple(range(k))
-    if sorted(order) != list(range(k)):
-        raise ValueError(f"ring order {order} is not a permutation")
-    perm = torch.as_tensor(order, device=xs.device)
-    inv = torch.argsort(perm)        # worker w sits at ring position inv[w]
 
-    nb = max(1, cfg.buckets)
-    w_pos = weights[perm]
-    accs, _, bsize = _pad_to_chunks(xs[perm] * w_pos[:, None], k, nb)
+# -- chunk-norm sideband (contribution admission / localization) -------------
 
-    fused_ops = None
-    if fused_src is not None and cfg.fused and cfg.quant == "int8":
-        a_flat, thetas = fused_src
-        pad = accs.shape[-1] - orig_size
-        a_flat = a_flat.float()
-        # an identity ring reads the caller's rows without a copy
-        t_pos = (thetas.float() if order == tuple(range(k))
-                 else thetas.float()[perm])
-        if pad:
-            a_flat = F.pad(a_flat, (0, pad))
-            t_pos = F.pad(t_pos, (0, pad))
-        fused_ops = (a_flat, t_pos, w_pos)
 
-    # reduce-scatter; hop 0 carries the fused transmit
-    _rs_hop_rows(0, accs, k, bsize, nb, cfg, fused_ops)
-    fused_ops = a_flat = t_pos = None        # free the padded copies
-    for s in range(1, k - 1):
-        _rs_hop_rows(s, accs, k, bsize, nb, cfg)
+def chunk_norms(xs, buckets: int = 1) -> np.ndarray:
+    """Per-(chunk, bucket) L2 norms of stacked contributions.
 
-    # all-gather with forwarded codes
-    accs, payloads = _ag_init_rows(accs, k, bsize, nb, cfg)
-    for s in range(k - 1):
-        accs, payloads = _ag_hop_rows(s, accs, payloads, k, bsize, nb, cfg)
-    del payloads
-
-    out = accs[:, :orig_size][inv]   # out[worker w] from position inv[w]
-    del accs
-    if cfg.average:
-        out.div_(total_w.clamp_min(1e-20))
-    return out
+    ``xs``: (k, D) per-worker rows (a tensor on any device, or an
+    array). Returns (k, k * buckets) float64 on the host — one column
+    per wire sub-bucket, laid out like the ring's chunk geometry (the
+    ceil-div padding of :func:`_pad_to_chunks` adds zeros), non-finite
+    values counted as 0. The squares add in fp64 on the rows' device,
+    a block of columns at a time, so no fp64 copy of the rows exists;
+    the reference adds them in numpy on the host, so the two agree to
+    fp64 rounding."""
+    rows = torch.as_tensor(xs)
+    k, size = rows.shape
+    nb = max(1, buckets)
+    bsize = -(-(-(-size // k)) // nb)
+    sq = torch.zeros((k, k * nb), dtype=torch.float64, device=rows.device)
+    for c in range(k * nb):
+        end = min((c + 1) * bsize, size)
+        for lo in range(c * bsize, end, _NORM_BLOCK):
+            x = rows[:, lo:min(lo + _NORM_BLOCK, end)].double()
+            x.nan_to_num_(nan=0.0, posinf=0.0, neginf=0.0)
+            sq[:, c] += (x * x).sum(dim=1)
+    return sq.sqrt_().cpu().numpy()

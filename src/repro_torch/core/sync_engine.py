@@ -84,12 +84,14 @@ class SyncEngine:
         ls = leaves(tree)
         return torch.cat([l.reshape(-1).float() for l in ls])
 
-    def flatten_rows(self, stacked) -> torch.Tensor:
-        """Stacked ``(k, ...)`` leaves -> (k, numel) fp32, one flat row
-        per worker (the JAX package's ``vmap(flatten)``)."""
+    def flatten_rows(self, stacked,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """Stacked ``(k, ...)`` leaves -> (k, numel) in ``dtype`` (a new
+        tensor), one flat row per worker (the JAX package's
+        ``vmap(flatten)``)."""
         ls = leaves(stacked)
         k = ls[0].shape[0]
-        return torch.cat([l.reshape(k, -1).float() for l in ls], dim=1)
+        return torch.cat([l.reshape(k, -1).to(dtype) for l in ls], dim=1)
 
     def unflatten(self, vec: torch.Tensor, like=None,
                   dtype: torch.dtype | None = None) -> dict:

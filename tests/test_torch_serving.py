@@ -130,7 +130,9 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.kernels.int8_quant, repro_torch.kernels.ops, "
             "repro_torch.core.sync_engine, repro_torch.core.ring_reduce, "
             "repro_torch.core.diloco, repro_torch.core.fault_tolerance, "
-            "repro_torch.core.elastic_mesh, repro_torch.optim.adamw, "
+            "repro_torch.core.elastic_mesh, repro_torch.core.topology, "
+            "repro_torch.core.compression, repro_torch.core.validation, "
+            "repro_torch.optim.adamw, "
             "repro_torch.optim.nesterov, repro_torch.optim.schedules, "
             "repro_torch.data.pipeline, repro_torch.models.common, "
             "repro_torch.models.transformer, repro_torch.models.registry\n"

@@ -170,17 +170,30 @@ def test_launcher_trains_on_cpu():
     assert train.build_parser().parse_args([]).device == "cuda"
 
 
-@pytest.mark.parametrize("argv", [["--overlap", "delayed"],
-                                  ["--events", '[[1, "crash", 0]]'],
-                                  ["--quant", "int4"],
-                                  ["--error-feedback"],
-                                  ["--ckpt-dir", "x"],
-                                  ["--inner-chunks", "2"]])
+@pytest.mark.parametrize("argv", [["--ckpt-dir", "x"],
+                                  ["--join-from", "127.0.0.1:1"],
+                                  ["--serve-ckpt-port", "0"]])
 def test_launcher_refuses_what_is_not_ported(argv):
     from repro_torch.launch import train
     with pytest.raises(NotImplementedError):
         train.main(["--device", "cpu", "--reduced", "--outer-steps", "1",
                     "--inner-steps", "1"] + argv)
+
+
+@pytest.mark.parametrize("argv", [["--overlap", "delayed"],
+                                  ["--events", '[[1, "crash", 0]]'],
+                                  ["--quant", "int4"],
+                                  ["--error-feedback"],
+                                  ["--inner-chunks", "2"]])
+def test_launcher_runs_elastic_options(argv):
+    from repro_torch.launch import train
+    hist = train.main(["--device", "cpu", "--reduced", "--workers", "2",
+                       "--outer-steps", "2", "--inner-steps", "2",
+                       "--seq-len", "8", "--batch-per-worker", "1"]
+                      + argv)["history"]
+    assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
+    if argv[0] == "--events":
+        assert hist[1]["left"] == [0] and hist[1]["live"] == [1]
 
 
 def test_pipeline_contract():
