@@ -54,7 +54,26 @@ Phases, each of which raises on failure (nothing is caught):
    the last delayed sync is replayed with the plain codec (anchors
    within the ring tolerance), and one ``RingSyncOp`` over the
    full-width rows, stepped one hop at a time, must equal
-   ``simulate_ring_all_reduce`` bit for bit.
+   ``simulate_ring_all_reduce`` bit for bit;
+8. main path, checkpointed training and live recovery: a writer built
+   by ``launch.train``'s parser and ``build_trainer`` trains
+   internlm2-1.8b at full width, depth 1, 2 workers, the int8 ring,
+   H = 4, 3 outer steps, with a delta checkpoint after each (one base,
+   two int8 deltas: kernel 2 encodes, kernel 4 applies on the card),
+   then serves its chunk store (``launch.train.serve_checkpoints``); a
+   second trainer of the same configuration streams the checkpoint into
+   its own store (``begin_stream_join``, the chain replayed through
+   kernel 4 on the card) and runs one outer step. The join must be
+   admitted at the writer's last step with a tree bitwise equal to the
+   writer's reference, launches must equal the ring's plus one per
+   float leaf per delta (writer: encode and apply; joiner: apply),
+   losses finite, peak under 70 GiB; kernels 2 and 4 are also held
+   against their plain versions at the embedding leaf's (1, 189,792,256)
+   row and timed there. On the reduced INTELLECT-1 (bf16 parameters) a
+   chain written on the card replays on the CPU and one written on the
+   CPU on the card, each bitwise equal to its writer's reference, and
+   the first delta's codes are the CPU writer's (bar elements within
+   1e-4 bucket widths of an edge, which may move by one).
 
 The last three lines are the kernels (JSON), the card (name, power
 limit) and the result.
@@ -67,8 +86,11 @@ import gc
 import json
 import math
 import re
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -99,6 +121,16 @@ ELASTIC = {"arch": "internlm2-1.8b", "n_layers": 2, "slots": 4, "live": 3,
 # begun at step 3 is in flight (torn, re-reduced over the survivors)
 ELASTIC_EVENTS = [(1, "join", 3, ""), (2, "poison", 1, "huge"),
                   (4, "crash", 2, "")]
+# phase 8: internlm2-1.8b at full width, depth cut to 1 (the phase's host
+# deflate and fetch scale with the parameters; a second layer added about
+# 12% to its 200 s), 2 workers, int8 ring, H = 4, 3 outer steps, a delta
+# checkpoint after each outer step: one base, then two int8 deltas
+CKPT_ARGS = ["--arch", "internlm2-1.8b", "--n-layers", "1", "--workers", "2",
+             "--max-workers", "2", "--quant", "int8", "--seq-len", "512",
+             "--batch-per-worker", "4", "--inner-steps", "4",
+             "--outer-steps", "3", "--ckpt-engine", "delta",
+             "--ckpt-codec", "int8", "--ckpt-base-every", "8"]
+PEAK_LIMIT_BYTES = 70 * 2**30
 # (B, S_max, Hk, G, dh, lengths): INTELLECT-1's attention at a long cache,
 # where the bytes rather than the latency chain should set the pace
 FD_LONG = (4, 8192, 8, 4, 128, [8192, 4096, 2048, 1])
@@ -1559,6 +1591,283 @@ def stepped_ring_bitwise(run) -> dict:
     return {"shape": shape, "launches": launches}
 
 
+def reset_codec_counts() -> None:
+    from repro_torch.kernels import int8_quant as iq
+    for name in CODEC:
+        getattr(iq, name).launches = 0
+
+
+def float_leaves(tree) -> int:
+    from repro_torch.core.sync_engine import leaves
+    return sum(1 for t in leaves(tree) if t.is_floating_point())
+
+
+def equal_trees(label, got, want) -> None:
+    """Every leaf of ``got`` bitwise equal to ``want``'s (same keys,
+    dtypes and shapes)."""
+    from repro_torch.checkpointing import checkpoint as ck
+    g, w = ck._flatten(got), ck._flatten(want)
+    if list(g) != list(w):
+        raise AssertionError(f"{label}: keys differ")
+    for k in w:
+        if not torch.equal(g[k].cpu(), w[k].cpu()):
+            raise AssertionError(f"{label}: leaf {k!r} differs")
+
+
+def train_checkpointed(workdir: Path) -> dict:
+    """Phase 8's main path (``CKPT_ARGS``): the writer trains and
+    checkpoints, then serves; the joiner streams the checkpoint in and
+    runs one outer step. Every codec count is set to 0 just before each
+    trainer's run (the joiner's from ``begin_stream_join``) and read
+    just after. Returns the kernel entries' additions."""
+    from repro_torch.core import ring_reduce as rr
+    from repro_torch.core.sync_engine import leaves
+    from repro_torch.launch import train as lt
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = lt.build_parser().parse_args(
+        CKPT_ARGS + ["--ckpt-dir", str(workdir / "writer"),
+                     "--serve-ckpt-port", "0"])
+    tr = lt.build_trainer(args)
+    writes = []
+    write_fn = tr.snapshotter.write_fn
+
+    def timed_write(step, tree, meta):
+        t0 = time.perf_counter()
+        m = write_fn(step, tree, meta)
+        writes.append({"step": step, "kind": m["kind"],
+                       "write_s": time.perf_counter() - t0, **m["stats"]})
+        return m
+    tr.snapshotter.write_fn = timed_write
+    reset_codec_counts()
+    t0 = time.perf_counter()
+    hist = tr.run(args.outer_steps, inner_steps=args.inner_steps)
+    torch.cuda.synchronize()
+    writer_launches = codec_counts()
+    writer_wall = time.perf_counter() - t0
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"checkpointed training: non-finite loss {hist}")
+    kinds = [w["kind"] for w in writes]
+    if kinds != ["base", "delta", "delta"]:
+        raise AssertionError(f"checkpointed training: wrote {kinds}")
+    n_float = float_leaves(tr.checkpoint_like())
+    deltas = kinds.count("delta")
+    per_sync = rr.codec_calls(tr.k, tr.cfg.diloco.ring, fused_src=True)
+
+    def want(syncs, encodes, applies):
+        out = {n: per_sync[n] * syncs for n in CODEC}
+        out["pseudograd_encode_hist"] += encodes
+        out["decode_add"] += applies
+        return out
+    want_w = want(len(hist), n_float * deltas, n_float * deltas)
+    if writer_launches != want_w:
+        raise AssertionError(f"writer: codec launches {writer_launches}, "
+                             f"want {want_w}")
+    for h in hist:
+        log(f"ckpt writer step {h['outer_step']}: loss={h['loss']:.4f} "
+            f"inner={h['inner_s'] * 1e3:.1f}ms "
+            f"sync={h['sync_s'] * 1e3:.1f}ms")
+    for w in writes:
+        ratio = w["logical_bytes"] / max(1, w["new_bytes"])
+        log(f"ckpt write step {w['step']} {w['kind']}: "
+            f"{w['write_s']:.2f}s logical_bytes={w['logical_bytes']} "
+            f"new_bytes={w['new_bytes']} "
+            f"codes_bytes={w.get('codes_bytes')} "
+            f"logical/new={ratio:.2f}x")
+    reference = tr.ckpt_writer.reference(tr.checkpoint_like())
+    last_step = tr.persisted_steps[-1]
+    peer = lt.serve_checkpoints(args, tr)
+    writer_peak = torch.cuda.max_memory_allocated()
+    # the writer thread holds the trainer (its on_persist callback) and
+    # the delta writer's reference on the card: end it before the joiner
+    tr.snapshotter.close()
+    log(f"ckpt writer: {n_float} float leaves, launches={writer_launches} "
+        f"(ring {per_sync} per sync x {len(hist)}), wall={writer_wall:.1f}s,"
+        f" peak_mem={writer_peak / 2**30:.2f}GiB, cpu_count={os.cpu_count()}")
+    del tr, hist
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        jargs = lt.build_parser().parse_args(CKPT_ARGS + ["--outer-steps",
+                                                          "1"])
+        jt = lt.build_trainer(jargs)
+        reset_codec_counts()
+        t0 = time.perf_counter()
+        fetcher = jt.begin_stream_join([peer.addr],
+                                       store_root=workdir / "joiner")
+        fetcher.wait_ready(timeout=900)
+        ready_s = time.perf_counter() - t0
+        jhist = jt.run(1, inner_steps=jargs.inner_steps)
+        torch.cuda.synchronize()
+        joiner_launches = codec_counts()
+    finally:
+        peer.close()
+    chain_chunks = len(peer.store.inventory())
+    join = jhist[0].get("stream_join")
+    if not join or not join["admitted"] or join["step"] != last_step:
+        raise AssertionError(f"joiner: stream join {join}, want admitted "
+                             f"at step {last_step}")
+    if not math.isfinite(jhist[0]["loss"]):
+        raise AssertionError(f"joiner: non-finite loss {jhist}")
+    equal_trees("joiner: fetched tree vs the writer's reference",
+                fetcher.result()[0], reference)
+    equal_trees("joiner: adopted anchor vs the writer's reference",
+                jt.outer.anchor, reference["anchor"])
+    want_j = want(1, 0, n_float * deltas)
+    if joiner_launches != want_j:
+        raise AssertionError(f"joiner: codec launches {joiner_launches}, "
+                             f"want {want_j}")
+    peak = torch.cuda.max_memory_allocated()
+    st = join["stats"]
+    # a round that fails (the peer drops a session idle past its 10 s
+    # timeout while the fetch worker replays the base) is retried; only
+    # the last round's chunks are counted in chunks_fetched
+    log(f"ckpt joiner: admitted at step {join['step']} (outer step "
+        f"{join['outer_step']}), fetch {st['fetch_seconds']:.2f}s "
+        f"(ready after {ready_s:.2f}s), rounds={st['rounds']} "
+        f"dead_peers={st.get('dead_peers')} chunks={st['chunks_fetched']} "
+        f"of {chain_chunks} bytes={st['bytes_fetched']} "
+        f"replayed_steps={st['replayed_steps']}"
+        f" replayed_on_stream={st['replayed_on_stream']} "
+        f"loss={jhist[0]['loss']:.4f} launches={joiner_launches}; "
+        f"tree bitwise equal to the writer's reference")
+    log(f"ckpt phase: peak_mem={peak / 2**30:.2f}GiB")
+    if peak >= PEAK_LIMIT_BYTES:
+        raise AssertionError(f"checkpoint phase peak {peak / 2**30:.2f} GiB")
+    n_embed = max(t.numel() for t in leaves(reference["params"]))
+    del jt, jhist, fetcher, reference
+    gc.collect()
+    torch.cuda.empty_cache()
+    extra = ckpt_kernel_times(n_embed)
+    for name in ("pseudograd_encode_hist", "decode_add"):
+        extra[name]["launches_ckpt"] = (writer_launches[name]
+                                        + joiner_launches[name])
+    return {"kernels": extra}
+
+
+def ckpt_kernel_times(n: int) -> dict:
+    """Kernels 2 and 4 at a delta leaf's (1, n) row, against their plain
+    versions (codes and counts exact, decode_add bitwise) and timed:
+    the delta encode reads theta and ref and writes codes, the apply
+    reads codes and ref and writes ref."""
+    from repro_torch.kernels import int8_quant as iq
+    from repro_torch.kernels import ref as qref
+    shape = (1, n)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    ref = torch.randn(shape, generator=gen, device="cuda").mul_(0.02)
+    new = torch.randn(shape, generator=gen, device="cuda").mul_(1e-3)
+    new.add_(ref)
+    x = qref.pseudograd(new, ref)
+    lo, width = qref.quant_params(x)
+    got = iq.pseudograd_encode_hist(new, ref, lo, width)
+    again = iq.pseudograd_encode_hist(new, ref, lo, width)
+    want = iq.pseudograd_encode_hist_torch(new, ref, lo, width)
+    torch.cuda.synchronize()
+    err = check_hist("delta encode (1, n)", x, lo, width, got, want, again)
+    codes = got[0]
+    book = qref.make_codebook(got[1], got[2], lo, width)
+    del x, got, again, want
+    acc = ref.clone()
+    plain = acc + iq.decode_torch(codes, book)
+    iq.decode_add(codes, book, acc)
+    torch.cuda.synchronize()
+    if not torch.equal(acc, plain):
+        raise AssertionError("delta apply (1, n): decode_add differs from "
+                             "its plain version")
+    del plain
+    enc_ms = time_ms(lambda: iq.pseudograd_encode_hist(new, ref, lo, width),
+                     iters=20)
+    app_ms = time_ms(lambda: iq.decode_add(codes, book, acc), iters=20)
+    out = {"pseudograd_encode_hist": {
+               "ckpt_ms": enc_ms, "ckpt_max_abs_err": err,
+               "ckpt_bound_ms": (9 * n + 256 * 8) / HBM_BYTES_PER_S * 1e3},
+           "decode_add": {
+               "ckpt_ms": app_ms, "ckpt_max_abs_err": 0.0,
+               "ckpt_bound_ms": (9 * n + 256 * 4) / HBM_BYTES_PER_S * 1e3}}
+    for entry in out.values():
+        entry["ckpt_shape"] = {"rows": 1, "n": n, "dtype": "float32"}
+    log(f"ckpt kernels at (1, {n}): delta encode {enc_ms:.3f} ms (bound "
+        f"{out['pseudograd_encode_hist']['ckpt_bound_ms']:.3f}), codes and "
+        f"counts exact, codebook max|err|={err:.3g}; delta apply "
+        f"{app_ms:.3f} ms (bound {out['decode_add']['ckpt_bound_ms']:.3f}),"
+        f" bitwise")
+    del ref, new, codes, book, acc
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_ckpt_cross_device(workdir: Path) -> None:
+    """The reduced INTELLECT-1 (bf16 parameters): the same three trees
+    checkpointed by a delta writer on the card and one on the CPU; each
+    chain replays on the other device bitwise equal to its writer's
+    reference, and the first delta's codes agree (an element may move by
+    one only within 1e-4 bucket widths of an edge, where the two
+    devices' mean/std reductions can round lo and width apart)."""
+    from repro_torch.checkpointing import (ChunkStore, DeltaCheckpointer,
+                                           DeltaConfig)
+    from repro_torch.checkpointing import checkpoint as ck
+    from repro_torch.checkpointing import delta
+    from repro_torch.configs import get_config
+    from repro_torch.core.sync_engine import tree_map
+    from repro_torch.kernels import ref as qref
+    from repro_torch.models.registry import get_model
+    cfg = dataclasses.replace(get_config("intellect-1").reduced(),
+                              dtype="bfloat16")
+    params = get_model(cfg, "cpu").init(0)
+    gen = torch.Generator().manual_seed(1)
+    anchor = tree_map(lambda p: p.float(), params)
+    mom = tree_map(torch.zeros_like, anchor)
+    trees = []
+    for _ in range(3):
+        trees.append({"params": params, "outer_momentum": mom,
+                      "anchor": anchor})
+        upd = tree_map(lambda a: torch.randn(a.shape, generator=gen) * 1e-3,
+                       anchor)
+        anchor = tree_map(torch.add, anchor, upd)
+        mom = tree_map(lambda m, u: 0.9 * m + u, mom, upd)
+        params = tree_map(lambda a, p: a.to(p.dtype), anchor, params)
+    like = trees[-1]
+    stores, refs = {}, {}
+    for dev in ("cuda", "cpu"):
+        stores[dev] = ChunkStore(workdir / f"cross_{dev}")
+        w = DeltaCheckpointer(stores[dev], DeltaConfig(base_every=8),
+                              device=dev)
+        for t, tree in enumerate(trees):
+            w.save(t, tree, {"outer_step": t})
+        refs[dev] = w.reference(like)
+    for wdev, rdev in (("cuda", "cpu"), ("cpu", "cuda")):
+        got, _ = delta.restore(stores[wdev], like, device=rdev)
+        equal_trees(f"chain written on {wdev}, replayed on {rdev}", got,
+                    refs[wdev])
+    m_gpu, m_cpu = (stores[d].load_manifest(1) for d in ("cuda", "cpu"))
+    base = ck._flatten(trees[0])
+    new = ck._flatten(trees[1])
+    flips = total = 0
+    for key, entry in m_cpu["keys"].items():
+        if entry.get("delta") is None:
+            continue
+        codes = [torch.frombuffer(m_store.read_bytes(
+            [c["id"] for c in m["keys"][key]["delta"]["codes_chunks"]]),
+            dtype=torch.uint8).long()
+            for m_store, m in ((stores["cuda"], m_gpu),
+                               (stores["cpu"], m_cpu))]
+        diff = torch.nonzero(codes[0] != codes[1]).flatten()
+        total += codes[0].numel()
+        if diff.numel():
+            x = (new[key].float() - base[key].float()).reshape(1, -1)
+            lo, width = qref.quant_params(x)
+            pos = ((x[0, diff].double() - lo.double()) / width.double())
+            if ((codes[0][diff] - codes[1][diff]).abs() != 1).any() or \
+                    ((pos - pos.round()).abs() >= 1e-4).any():
+                raise AssertionError(f"first delta's codes of {key!r} "
+                                     f"differ away from a bucket edge")
+            flips += diff.numel()
+    log(f"ckpt cross-device (reduced INTELLECT-1, bf16 params): chains "
+        f"card->CPU and CPU->card replay bitwise equal to their writers' "
+        f"references; first delta's codes: {flips} of {total} differ, all "
+        f"at bucket edges by one")
+
+
 def main() -> None:
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False     # fp32 stays fp32
@@ -1614,6 +1923,17 @@ def main() -> None:
     for entry in kernels[1:5]:
         entry["launches_elastic"] = elastic["launches"][entry["name"]]
     del elastic
+    gc.collect()
+    torch.cuda.empty_cache()
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        ckpt = train_checkpointed(workdir)
+        check_ckpt_cross_device(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    for entry in kernels[1:5]:
+        if entry["name"] in ckpt["kernels"]:
+            entry.update(ckpt["kernels"][entry["name"]])
     gc.collect()
     torch.cuda.empty_cache()
     log(f"total {time.perf_counter() - t0:.1f}s")

@@ -13,17 +13,34 @@ step, synchronous or overlapped with the next inner phase.
       --inner-steps 4 --overlap delayed --inner-chunks 7 \
       --events '[[1, "join", 3], [2, "crash", 0]]'
 
+Checkpoints, joining and serving them, on the CPU:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --reduced --workers 2 --outer-steps 3 --inner-steps 2 \
+      --ckpt-dir /tmp/ck --ckpt-engine delta --serve-ckpt-port 0
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --reduced --workers 2 --outer-steps 1 --inner-steps 2 \
+      --ckpt-dir /tmp/joiner --ckpt-engine delta \
+      --join-from 127.0.0.1:<port> [--join-mode stream]
+
 It runs on the GPU (``--device cuda``, the default). ``--max-workers``
 sets the number of stacked slots (default: the reference's
 ``max(2w, w+2)``). ``--events`` is the reference's JSON list of
-``[outer_step, kind, node_id]``. Checkpoints, joining from peers and
-serving checkpoints (``--ckpt-dir``, ``--join-from``,
-``--serve-ckpt-port``) are not ported yet and raise.
+``[outer_step, kind, node_id]``. ``--ckpt-engine`` picks flat npy
+directories, the content-addressed chunk store or the store with an
+int8/int4 delta chain (its reference on the training device: the codec
+kernels encode and apply it on the GPU). ``--join-from`` swarm-fetches
+the peers' newest checkpoint into ``--ckpt-dir`` before step 0
+(``--join-mode blocking``) or streams it under the inner phases and
+adopts it at the first outer boundary where it is ready (``stream``).
+``--serve-ckpt-port`` serves the checkpoints after training until
+interrupted (``serve_checkpoints`` starts the server without blocking).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import time
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -51,8 +68,26 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--inner-lr", type=float, default=3e-4)
     ap.add_argument("--outer-lr", type=float, default=0.7)
     ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--join-from", default=None)
-    ap.add_argument("--serve-ckpt-port", type=int, default=None)
+    ap.add_argument("--ckpt-engine", default="flat",
+                    choices=["flat", "store", "delta"],
+                    help="flat npy dirs | content-addressed chunk store | "
+                         "chunk store + int8/int4 delta chain")
+    ap.add_argument("--ckpt-base-every", type=int, default=8,
+                    help="delta engine: full re-anchor every N saves")
+    ap.add_argument("--ckpt-codec", default="int8", choices=["int8", "int4"])
+    ap.add_argument("--serve-ckpt-port", type=int, default=None,
+                    help="serve the checkpoints to joiners on this port "
+                         "after training (0 = ephemeral)")
+    ap.add_argument("--join-from", default=None,
+                    help="comma-separated host:port peers; swarm-fetch the "
+                         "latest checkpoint into --ckpt-dir and start "
+                         "from it")
+    ap.add_argument("--join-mode", default="blocking",
+                    choices=["blocking", "stream"],
+                    help="blocking: the fetch completes before step 0; "
+                         "stream: gossip + background chunk streaming "
+                         "under the inner phases, adopted at the first "
+                         "outer boundary where the chain is assembled")
     ap.add_argument("--events", default=None)
     ap.add_argument("--seed", type=int, default=0)
     return ap
@@ -60,12 +95,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def build_trainer(args):
     """The trainer that ``args`` (from ``build_parser``) describe."""
-    for flag, value in (("--ckpt-dir", args.ckpt_dir),
-                        ("--join-from", args.join_from),
-                        ("--serve-ckpt-port", args.serve_ckpt_port)):
-        if value is not None:
-            raise NotImplementedError(f"{flag} is not ported yet")
-
     import dataclasses
 
     import torch
@@ -94,6 +123,9 @@ def build_trainer(args):
             overlap=args.overlap, sync_buckets=args.sync_buckets,
             error_feedback=args.error_feedback),
         inner_lr=args.inner_lr, inner_chunks=args.inner_chunks,
+        ckpt_dir=args.ckpt_dir, ckpt_engine=args.ckpt_engine,
+        ckpt_delta_base_every=args.ckpt_base_every,
+        ckpt_codec=args.ckpt_codec,
         max_workers=(args.max_workers if args.max_workers is not None
                      else max(args.workers * 2, args.workers + 2)))
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
@@ -105,12 +137,82 @@ def build_trainer(args):
     return ElasticTrainer(model, tcfg, dcfg, model.init(args.seed), sim)
 
 
+def parse_peers(spec: str) -> list[tuple[str, int]]:
+    """``host:port,host:port`` -> [(host, port), ...] (host defaults to
+    127.0.0.1)."""
+    peers = []
+    for hp in spec.split(","):
+        host, _, port = hp.rpartition(":")
+        peers.append((host or "127.0.0.1", int(port)))
+    return peers
+
+
+def join(args, trainer) -> dict | None:
+    """``--join-from``: a blocking swarm recovery adopted now (returns
+    its fetch stats), or a streaming join begun in the background
+    (adopted by ``run()``; returns None)."""
+    if not args.join_from:
+        return None
+    assert args.ckpt_dir, "--join-from needs --ckpt-dir"
+    assert args.ckpt_engine != "flat", \
+        "--join-from fetches into a chunk store; use --ckpt-engine " \
+        "store|delta"
+    peers = parse_peers(args.join_from)
+    if args.join_mode == "stream":
+        trainer.begin_stream_join(peers)
+        print(f"streaming join from {len(peers)} peers "
+              f"(gossip + background chunk streaming)")
+        return None
+    from repro_torch.checkpointing import recover
+    tree, meta, stats = recover(peers, args.ckpt_dir,
+                                trainer.checkpoint_like(),
+                                device=trainer.device)
+    trainer.adopt_checkpoint(tree, meta)
+    print(f"joined via swarm: step {stats['step']}, "
+          f"{stats['chunks_fetched']} chunks ({stats['bytes_fetched']} B) "
+          f"from {len(stats['per_peer'])} peers "
+          f"(reassigned={stats['reassigned_ranges']})")
+    return stats
+
+
+def serve_checkpoints(args, trainer):
+    """``--serve-ckpt-port``: start serving the checkpoints (a
+    ``CheckpointServer`` for the flat engine, else the chunk store's
+    ``ChunkPeer``) and return it without blocking; ``close()`` stops
+    it."""
+    assert args.ckpt_dir, "--serve-ckpt-port needs --ckpt-dir"
+    if args.ckpt_engine == "flat":
+        from repro_torch.checkpointing import CheckpointServer
+        peer = CheckpointServer(args.ckpt_dir, port=args.serve_ckpt_port)
+        print(f"serving flat checkpoints on 127.0.0.1:{peer.port}")
+    else:
+        peer = trainer.serve_checkpoints(port=args.serve_ckpt_port)
+        print(f"serving chunk store on 127.0.0.1:{peer.port}")
+    return peer
+
+
 def main(argv=None) -> dict:
-    """Parse ``argv``, train, print one JSON line per outer step and
+    """Parse ``argv``, join if asked, train, print one JSON line per
+    outer step, serve the checkpoints if asked (until interrupted) and
     return ``{"history", "trainer"}``."""
     args = build_parser().parse_args(argv)
     trainer = build_trainer(args)
+    join(args, trainer)
     hist = trainer.run(args.outer_steps, inner_steps=args.inner_steps)
+    for j in (h["stream_join"] for h in hist if "stream_join" in h):
+        st = j.get("stats", {})
+        print(f"stream join: admitted={j['admitted']} step={j.get('step')} "
+              f"fetch={st.get('fetch_seconds', 0):.3f}s "
+              f"chunks={st.get('chunks_fetched', 0)} "
+              f"replayed_on_stream={st.get('replayed_on_stream', 0)}")
+    if args.serve_ckpt_port is not None:
+        peer = serve_checkpoints(args, trainer)
+        print("(ctrl-C to stop)")
+        try:
+            while True:
+                time.sleep(1)
+        except KeyboardInterrupt:
+            peer.close()
     for rec in hist:
         print(json.dumps({k: v for k, v in rec.items()
                           if k != "ring_order"}, default=str))

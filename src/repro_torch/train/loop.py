@@ -18,7 +18,12 @@ Per outer step t (paper Alg. 1 + §2.4):
      set (flagged contributors are sanitized out and quarantined);
   5. the shared Nesterov outer step updates the anchor and every slot
      resets to it: at once (``overlap="none"``), or one phase late
-     (``"delayed"``), the ring of boundary t running under phase t+1.
+     (``"delayed"``), the ring of boundary t running under phase t+1;
+     a streaming join that finished during the phase is adopted, and the
+     checkpoint (slot 0's parameters, the outer momentum and the anchor)
+     is written every ``ckpt_every_outer`` steps: flat npy directories,
+     the chunk store or an int8/int4 delta chain, persisted off the
+     critical path by an ``AsyncSnapshotter``, with retention gc.
 
 The k slots are stacked ``(k, ...)`` tensors on the model's device. The
 inner step loops over the live slots with ``torch.autograd`` where the
@@ -28,8 +33,8 @@ AdamW state (``step`` included) stay untouched. Parameters and moments
 are updated in place (AdamW, the post-sync reset, a joiner's slot,
 poison); the sync in flight keeps copies of what it needs.
 
-Not ported yet (raise ``NotImplementedError``): checkpoints, the
-streaming join and the distributed sync backend.
+Not ported yet (raises ``NotImplementedError``): the distributed sync
+backend.
 """
 from __future__ import annotations
 
@@ -58,6 +63,17 @@ class TrainerConfig:
     diloco: dl.DiLoCoConfig
     inner_lr: float | Callable = 7.5e-5
     ckpt_dir: str | None = None
+    ckpt_every_outer: int = 1
+    # 'flat'  — npy-per-leaf dirs (CheckpointServer-served)
+    # 'store' — content-addressed chunk store (dedup + swarm-fetchable)
+    # 'delta' — chunk store + int8/int4 delta chain between base anchors
+    ckpt_engine: str = "flat"
+    ckpt_delta_base_every: int = 8
+    ckpt_codec: str = "int8"       # delta codec: 'int8' | 'int4'
+    ckpt_chunk_bytes: int = 1 << 20
+    # retention: keep the newest N store/delta checkpoints, gc the rest
+    # (FIFO behind the async persists); None keeps everything
+    ckpt_keep: int | None = None
     max_workers: int = 16
     seconds_per_outer_step: float = 60.0
     # inner phase as this many chunks; the gaps between chunks are where
@@ -71,10 +87,6 @@ class TrainerConfig:
     link_bytes_per_gbps: float = 125e6
     # contribution admission: None disables it (core/validation.py)
     validation: vd.ValidationConfig | None = None
-
-    def __post_init__(self):
-        if self.ckpt_dir is not None:
-            raise NotImplementedError("checkpoints are not ported yet")
 
 
 def _stack(tree, k: int):
@@ -146,6 +158,38 @@ class ElasticTrainer:
         # dispatched after them
         self._chunk_s: list[float] = []
         self._hop_s: list[float] = []
+        self.ckpt_store = None
+        self.ckpt_writer = None                # the DeltaCheckpointer
+        self.snapshotter = None
+        self._ckpt_steps: list[int] = []
+        self.persisted_steps: list[int] = []   # on disk, not just queued
+        self._stream_join = None               # in-flight StreamingFetcher
+        if cfg.ckpt_dir and cfg.ckpt_engine != "flat":
+            from repro_torch.checkpointing import (AsyncSnapshotter,
+                                                   ChunkStore,
+                                                   DeltaCheckpointer,
+                                                   DeltaConfig)
+            self.ckpt_store = ChunkStore(
+                cfg.ckpt_dir, chunk_bytes=cfg.ckpt_chunk_bytes)
+            if cfg.ckpt_engine == "delta":
+                self.ckpt_writer = DeltaCheckpointer(
+                    self.ckpt_store,
+                    DeltaConfig(base_every=cfg.ckpt_delta_base_every,
+                                codec=cfg.ckpt_codec), device=self.device)
+                write_fn = self.ckpt_writer.save
+            elif cfg.ckpt_engine == "store":
+                write_fn = self.ckpt_store.save_tree
+            else:
+                raise ValueError(
+                    f"unknown ckpt_engine {cfg.ckpt_engine!r}")
+            # double-buffered: persists overlap the next inner phase, FIFO
+            # so the delta chain is written in step order; on_persist
+            # tracks what is actually on disk, which the retention gc's
+            # keep set reads when the task runs
+            self.snapshotter = AsyncSnapshotter(
+                write_fn,
+                on_persist=lambda step, _m:
+                    self.persisted_steps.append(step))
 
     # -- inner phase ----------------------------------------------------------
 
@@ -330,11 +374,21 @@ class ElasticTrainer:
                     "quarantined": list(adm_report.quarantined_nodes)}
             if fallback_rec is not None:
                 rec["sync_fallback"] = fallback_rec
+            # a streamed recovery that completed during this inner phase
+            # is adopted HERE: the fetch ran under compute, admission
+            # costs one restore
+            join_rec = self.poll_stream_join()
+            if join_rec is not None:
+                rec["stream_join"] = join_rec
             if self.boundary_hook is not None:
                 hook_rec = self.boundary_hook(t, self)
                 if hook_rec:
                     rec["boundary_hook"] = hook_rec
             self.history.append(rec)
+
+            if self.cfg.ckpt_dir and \
+                    (t + 1) % self.cfg.ckpt_every_outer == 0:
+                self._checkpoint(global_step, t + 1)
         # drain: the last boundary's sync is still in flight; apply it
         # so the returned anchor includes the final phase's progress
         if self._inflight is not None:
@@ -350,7 +404,115 @@ class ElasticTrainer:
             self.sim.note_sync_end()
             self._sync()
             self.history[-1]["drain_s"] = time.perf_counter() - t0
+        if self.snapshotter is not None:
+            self.snapshotter.flush()
         return self.history
+
+    # -- checkpoints and live recovery ----------------------------------------
+
+    def _checkpoint(self, global_step: int, outer_step: int) -> None:
+        tree = self.checkpoint_like()
+        meta = {"outer_step": outer_step}
+        if self.snapshotter is None:
+            from repro_torch.checkpointing import save_async
+            save_async(self.cfg.ckpt_dir, global_step, tree, meta)
+            return
+        self.snapshotter.submit(global_step, tree, meta)
+        self._ckpt_steps.append(global_step)
+        keep = self.cfg.ckpt_keep
+        if keep and len(self._ckpt_steps) > keep:
+            # the keep set is computed when the task RUNS (FIFO behind
+            # every pending persist), from what is on disk by then
+            self.snapshotter.submit_task(
+                lambda: self.ckpt_store.gc(
+                    keep_steps=tuple(self.persisted_steps[-keep:])))
+
+    def begin_stream_join(self, peers, *, store_root=None,
+                          step: int | None = None,
+                          range_chunks: int = 8, timeout: float = 20.0):
+        """Start an overlapped streaming recovery from ``peers`` on a
+        background thread (paper §2.4.2). The fetch gossips chunk
+        availability, streams the manifest chain into this node's store
+        and replays the delta chain on this trainer's device as it
+        lands; ``run()`` adopts the result at the first outer boundary
+        where it is ready. Returns the fetcher."""
+        assert self._stream_join is None or self._stream_join.done, \
+            "a streaming join is already in flight"
+        from repro_torch.checkpointing import ChunkStore, StreamingFetcher
+        # an explicit store_root wins (a joiner in the same process as
+        # the cluster streams into its OWN store); a real joiner
+        # defaults to its configured chunk store
+        if store_root is not None:
+            store = ChunkStore(store_root)
+        else:
+            store = self.ckpt_store
+            assert store is not None, \
+                "streaming join needs a chunk store: configure " \
+                "ckpt_engine store|delta or pass store_root"
+        self._stream_join = StreamingFetcher(
+            peers, store, self.checkpoint_like(), step=step,
+            range_chunks=range_chunks, timeout=timeout,
+            device=self.device).start()
+        return self._stream_join
+
+    def poll_stream_join(self) -> dict | None:
+        """Non-blocking: adopt a finished streaming recovery (called at
+        every outer boundary by ``run()``). Returns the admission record,
+        a failure record, or None while still streaming."""
+        f = self._stream_join
+        if f is None or not f.done:
+            return None
+        self._stream_join = None
+        if f.failed:
+            f.close()
+            return {"admitted": False, "error": str(f.error),
+                    "stats": f.stats()}
+        tree, meta, stats = f.result()
+        self.adopt_checkpoint(tree, meta)
+        f.close()
+        return {"admitted": True, "step": stats["step"],
+                "outer_step": meta.get("outer_step"), "stats": stats}
+
+    def checkpoint_like(self) -> dict:
+        """The tree ``run()`` checkpoints (slot 0's parameters, the outer
+        momentum, the anchor; views of the live state): the template of
+        every restore."""
+        return {"params": _slot(self.params, 0),
+                "outer_momentum": self.outer.opt.momentum,
+                "anchor": self.outer.anchor}
+
+    def serve_checkpoints(self, port: int = 0):
+        """Expose this node's chunk store to joining peers."""
+        from repro_torch.checkpointing import ChunkPeer
+        assert self.ckpt_store is not None, \
+            "serve_checkpoints requires ckpt_engine 'store' or 'delta'"
+        return ChunkPeer(self.ckpt_store, port=port)
+
+    def adopt_checkpoint(self, tree, meta: dict) -> None:
+        """Enter at the next outer boundary from a recovered checkpoint:
+        the anchor (a new flat buffer) and outer momentum are replaced,
+        every slot's parameters are reset to the recovered ones and
+        every slot's AdamW state to a fresh one."""
+        eng = SyncEngine.for_tree(_slot(self.params, 0))
+        on_dev = lambda t: tree_map(
+            lambda x: torch.as_tensor(x).to(self.device), t)
+        f32 = torch.float32
+        a_flat = eng.flatten(on_dev(tree["anchor"]))
+        m_flat = eng.flatten(on_dev(tree["outer_momentum"]))
+        self.outer = self.outer._replace(
+            anchor=eng.unflatten(a_flat, dtype=f32),
+            opt=self.outer.opt._replace(
+                momentum=eng.unflatten(m_flat, dtype=f32)),
+            outer_step=int(meta.get("outer_step", 0)),
+            anchor_flat=a_flat)
+        with torch.no_grad():
+            for dst, src in zip(leaves(self.params),
+                                leaves(on_dev(tree["params"]))):
+                dst.copy_(src)       # broadcast over the slots
+            self.opt_state.step.zero_()
+            for m in leaves(self.opt_state.m) + leaves(self.opt_state.v):
+                m.zero_()
+        self._sync()
 
     def _quarantined_slots(self) -> list[int]:
         return sorted(self.slots.slot_of[nid]
@@ -463,7 +625,7 @@ class ElasticTrainer:
         """Tear down any sync in flight. ``discard=False`` drains and
         applies it; ``discard=True`` aborts it (the partial reduction is
         dropped and the handle raises ``SyncAbortedError`` on any
-        further use)."""
+        further use). Pending async snapshots are flushed either way."""
         h, self._inflight = self._inflight, None
         rec = None
         if h is not None and not h.aborted:
@@ -479,6 +641,8 @@ class ElasticTrainer:
                     h, self.params, self.outer)
                 self._set_params(new_params)
             self.sim.note_sync_end()
+        if self.snapshotter is not None:
+            self.snapshotter.flush()
         return rec
 
     def __enter__(self) -> "ElasticTrainer":

@@ -135,10 +135,19 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.optim.adamw, "
             "repro_torch.optim.nesterov, repro_torch.optim.schedules, "
             "repro_torch.data.pipeline, repro_torch.models.common, "
-            "repro_torch.models.transformer, repro_torch.models.registry\n"
+            "repro_torch.models.transformer, repro_torch.models.registry, "
+            "repro_torch.checkpointing, "
+            "repro_torch.checkpointing.checkpoint, "
+            "repro_torch.checkpointing.store, "
+            "repro_torch.checkpointing.snapshot, "
+            "repro_torch.checkpointing.delta, repro_torch.checkpointing.p2p, "
+            "repro_torch.checkpointing.gossip, "
+            "repro_torch.checkpointing.swarm, "
+            "repro_torch.checkpointing.streaming\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
-            "m.startswith('repro.')]\n"
+            "m.startswith('repro.') or m == 'ml_dtypes' or "
+            "m.startswith('ml_dtypes.')]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,

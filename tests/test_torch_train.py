@@ -11,6 +11,7 @@ rule, with the bound of each outer sync's pseudo-gradients scaled by the
 outer step (bf16: see the test);
 wire bytes, live sets and attempts identical."""
 import dataclasses
+import time
 
 import jax
 import numpy as np
@@ -170,14 +171,100 @@ def test_launcher_trains_on_cpu():
     assert train.build_parser().parse_args([]).device == "cuda"
 
 
-@pytest.mark.parametrize("argv", [["--ckpt-dir", "x"],
-                                  ["--join-from", "127.0.0.1:1"],
-                                  ["--serve-ckpt-port", "0"]])
-def test_launcher_refuses_what_is_not_ported(argv):
+CKPT_ARGV = ["--device", "cpu", "--reduced", "--workers", "2",
+             "--inner-steps", "2", "--seq-len", "8", "--batch-per-worker",
+             "1"]
+
+
+def _writer(tmp_path, engine="delta", outer=3):
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError):
-        train.main(["--device", "cpu", "--reduced", "--outer-steps", "1",
-                    "--inner-steps", "1"] + argv)
+    argv = CKPT_ARGV + ["--outer-steps", str(outer), "--ckpt-dir",
+                        str(tmp_path / "writer"), "--ckpt-engine", engine]
+    out = train.main(argv)
+    args = train.build_parser().parse_args(argv + ["--serve-ckpt-port", "0"])
+    return args, out["trainer"], out["history"]
+
+
+def test_launcher_delta_checkpoint_then_restore(tmp_path):
+    from repro_torch.checkpointing import ChunkStore, delta
+    _, tr, hist = _writer(tmp_path)
+    store = ChunkStore(tmp_path / "writer")
+    assert store.steps() == [2, 4, 6] == tr.persisted_steps
+    assert [store.load_manifest(s)["kind"] for s in store.steps()] == \
+        ["base", "delta", "delta"]
+    like = tr.checkpoint_like()
+    got, meta = delta.restore(store, like, device="cpu")
+    assert meta == {"outer_step": 3}
+    want = tr.ckpt_writer.reference(like)
+    for a, b in zip(leaves(got), leaves(want)):
+        assert torch.equal(a, b)
+    assert len(hist) == 3 and all(np.isfinite(h["loss"]) for h in hist)
+
+
+@pytest.mark.parametrize("engine", ["store", "delta"])
+def test_launcher_blocking_join_from_a_served_peer(tmp_path, engine):
+    """``--join-from`` against a peer that ``serve_checkpoints`` runs on
+    its own thread: the joiner starts from the writer's checkpoint."""
+    from repro_torch.launch import train
+    args, tr, _ = _writer(tmp_path, engine)
+    peer = train.serve_checkpoints(args, tr)
+    try:
+        out = train.main(CKPT_ARGV + [
+            "--outer-steps", "1", "--ckpt-dir", str(tmp_path / "joiner"),
+            "--ckpt-engine", engine,
+            "--join-from", f"127.0.0.1:{peer.port}"])
+    finally:
+        peer.close()
+    jt = out["trainer"]
+    assert jt.outer.outer_step == 4           # resumed at 3, one more
+    assert out["history"][0]["outer_step"] == 0
+    assert np.isfinite(out["history"][0]["loss"])
+    # the fetched chain (a delta chain from its base), then its own save
+    assert jt.ckpt_store.steps() == \
+        ([2, 4, 6] if engine == "delta" else [6]) + [8]
+
+
+def test_launcher_stream_join(tmp_path):
+    """``--join-mode stream`` begins the streaming join before training;
+    the trainer adopts it at the first boundary where it is ready."""
+    from repro_torch.launch import train
+    args, tr, _ = _writer(tmp_path)
+    peer = train.serve_checkpoints(args, tr)
+    try:
+        jargs = train.build_parser().parse_args(CKPT_ARGV + [
+            "--outer-steps", "1", "--ckpt-dir", str(tmp_path / "joiner"),
+            "--ckpt-engine", "delta", "--join-mode", "stream",
+            "--join-from", f"127.0.0.1:{peer.port}"])
+        jt = train.build_trainer(jargs)
+        assert train.join(jargs, jt) is None
+        jt._stream_join.wait_ready(timeout=60)
+        hist = jt.run(1, inner_steps=jargs.inner_steps)
+    finally:
+        peer.close()
+    rec = hist[0]["stream_join"]
+    assert rec["admitted"] and rec["step"] == 6 and rec["outer_step"] == 3
+    want = tr.ckpt_writer.reference(tr.checkpoint_like())
+    for a, b in zip(leaves(jt.outer.anchor), leaves(want["anchor"])):
+        assert torch.equal(a, b)
+
+
+def test_launcher_serves_flat_checkpoints(tmp_path):
+    from repro_torch.checkpointing import fetch_checkpoint, restore
+    from repro_torch.launch import train
+    args, tr, _ = _writer(tmp_path, "flat", outer=1)
+    for _ in range(500):
+        if (tmp_path / "writer" / "step_00000002").exists():
+            break
+        time.sleep(0.01)
+    peer = train.serve_checkpoints(args, tr)
+    try:
+        path = fetch_checkpoint(("127.0.0.1", peer.port), tmp_path / "got")
+    finally:
+        peer.close()
+    got, meta = restore(tmp_path / "got", tr.checkpoint_like())
+    assert path.name == "step_00000002" and meta == {"outer_step": 1}
+    for a, b in zip(leaves(got), leaves(tr.checkpoint_like())):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("argv", [["--overlap", "delayed"],
