@@ -73,13 +73,32 @@ Phases, each of which raises on failure (nothing is caught):
    chain written on the card replays on the CPU and one written on the
    CPU on the card, each bitwise equal to its writer's reference, and
    the first delta's codes are the CPU writer's (bar elements within
-   1e-4 bucket widths of an edge, which may move by one).
+   1e-4 bucket widths of an edge, which may move by one);
+9. main path, the distributed outer sync: at the ring's full-width
+   chunk, one (1, n) row a call as the ranks launch them, kernels 1, 3
+   and 4 must agree with their plain versions and the one-row encode
+   with the k-row encode bit for bit; internlm2-1.8b at full width, depth 1, 3 DiLoCo slots, int8,
+   H = 7 in 7 chunks, the delayed overlap, error feedback, 3 outer
+   steps, node 2 crashing at step 2 with its sync in flight, is trained
+   with the simulated ring, then with ``DistSyncBackend`` over a (3,)
+   mesh of rank processes on the card (the WAN ring over gloo through
+   pinned host buffers, kernels 1-4 in the ranks). History, losses,
+   parameters and anchor must be bitwise the simulated trainer's, the
+   ring formed once, every reduction's launches summed over the ranks
+   k x ``codec_calls`` (the torn ring's hops and the restart too), the
+   controller peak under 70 GiB; then a (2, 2) mesh (WAN x local, both
+   gloo) reduces 2 x 442,505,216 rows hierarchically, bitwise equal to
+   the per-slice simulator (its chunk's rows checked as above).
+
+``python3 chip_smoke.py --dist-slots N`` builds and runs phase 9 alone
+with N slots (how its slot count was sized) and prints no result.
 
 The last three lines are the kernels (JSON), the card (name, power
 limit) and the result.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import gc
@@ -131,6 +150,19 @@ CKPT_ARGS = ["--arch", "internlm2-1.8b", "--n-layers", "1", "--workers", "2",
              "--outer-steps", "3", "--ckpt-engine", "delta",
              "--ckpt-codec", "int8", "--ckpt-base-every", "8"]
 PEAK_LIMIT_BYTES = 70 * 2**30
+# phase 9: the distributed outer sync at full width: internlm2-1.8b,
+# depth cut to 1, every slot a rank process on the card, int8, H = 7 in
+# 7 chunks, the delayed overlap, error feedback on; node 2 crashes at
+# step 2 while the sync begun at step 1 is in flight (torn, re-reduced).
+# 3 slots, not 4: with error feedback the (2, k, n) fp32 residual and
+# its commit-time copy are 13.19 GiB each at k = 4, and at 4 slots the
+# simulated trainer runs out of an 80 GB card's memory at that copy
+# (66.00 GiB allocated; ``--dist-slots 4`` shows it)
+DIST = {"arch": "internlm2-1.8b", "n_layers": 1, "slots": 3,
+        "inner_steps": 7, "inner_chunks": 7, "outer_steps": 3,
+        "seq_len": 512, "batch_per_worker": 4, "inner_lr": 3e-4, "seed": 0}
+DIST_EVENTS = [(2, "crash", 2, "")]
+DIST_HIER = (2, 2)     # (WAN, local) ranks of the hierarchical check
 # (B, S_max, Hk, G, dh, lengths): INTELLECT-1's attention at a long cache,
 # where the bytes rather than the latency chain should set the pace
 FD_LONG = (4, 8192, 8, 4, 128, [8192, 4096, 2048, 1])
@@ -1868,12 +1900,313 @@ def check_ckpt_cross_device(workdir: Path) -> None:
         f"at bucket edges by one")
 
 
-def main() -> None:
+def dist_trainer(model, params, backend=None):
+    """Phase 9's trainer (``DIST``): every slot live, int8, the delayed
+    overlap over 7 chunks, error feedback, ``DIST_EVENTS``."""
+    from repro_torch.core.diloco import DiLoCoConfig
+    from repro_torch.core.fault_tolerance import (ClusterSimulator,
+                                                  EventKind, NodeEvent)
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train.loop import ElasticTrainer, TrainerConfig
+    d = DIST
+    events = [NodeEvent(t, EventKind(kind), nid, arg)
+              for t, kind, nid, arg in DIST_EVENTS]
+    return ElasticTrainer(
+        model, TrainerConfig(
+            DiLoCoConfig(inner_steps=d["inner_steps"], quant="int8",
+                         overlap="delayed", error_feedback=True),
+            inner_lr=d["inner_lr"], max_workers=d["slots"],
+            inner_chunks=d["inner_chunks"]),
+        DataConfig(vocab=model.cfg.vocab, seq_len=d["seq_len"],
+                   batch_per_worker=d["batch_per_worker"],
+                   total_steps=d["outer_steps"] * d["inner_steps"]),
+        params, ClusterSimulator(range(d["slots"]), events=events),
+        sync_backend=backend)
+
+
+def dist_codec_rows(n: int, k: int) -> dict:
+    """The codec at a distributed ring's hop shape, one (1, n) row a
+    call as each rank launches it (with ``n`` odd, rows 1.. of the (k, n)
+    buffer start off the 16-byte boundary, as the ranks' chunks do):
+    kernels 1, 3 and 4 on each row against their plain versions on the
+    same inputs (``check_hist``'s tolerances; decode and decode_add
+    exact), and the one-row encode bitwise equal to the k-row encode,
+    which the distributed ring's bits rest on. Also says whether a
+    batched ``std_mean`` over k rows, or one on a row that starts off
+    the 16-byte boundary, would have differed from one call on an
+    aligned row (the hazards ``ref.row_std_mean`` removes)."""
+    from repro_torch.kernels import int8_quant as iq
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn((k, n), generator=gen, device="cuda").mul_(1e-3)
+    accs = torch.randn((k, n), generator=gen, device="cuda")
+    q = ops.quantize(x)
+    worst = 0.0
+    for r in range(k):
+        row, acc = x[r:r + 1], accs[r:r + 1]
+        one = ops.quantize(row)
+        if not (torch.equal(one.codes, q.codes[r:r + 1])
+                and torch.equal(one.codebook, q.codebook[r:r + 1])):
+            raise AssertionError(f"one-row encode of row {r} differs from "
+                                 f"the {k}-row encode at (1, {n})")
+        lo, width = ref.quant_params(row)
+        got = iq.encode_hist(row, lo, width)
+        again = iq.encode_hist(row, lo, width)
+        want = iq.encode_hist_torch(row, lo, width)
+        torch.cuda.synchronize()
+        worst = max(worst, check_hist(
+            f"dist encode_hist row {r} (1, {n}), offset "
+            f"{row.data_ptr() % 16} B", row, lo, width, got, want, again))
+        del got, again, want
+        dec = iq.decode(one.codes, one.codebook)
+        if not torch.equal(dec, iq.decode_torch(one.codes, one.codebook)):
+            raise AssertionError(f"dist decode of row {r} (1, {n}) differs "
+                                 f"from its plain version")
+        want = iq.decode_add_torch(one.codes, one.codebook, acc.clone())
+        got = iq.decode_add(one.codes, one.codebook, acc)
+        torch.cuda.synchronize()
+        if got.data_ptr() != acc.data_ptr() or not torch.equal(got, want):
+            raise AssertionError(f"dist decode_add of row {r} (1, {n}) "
+                                 f"differs from its plain version")
+        del one, dec, got, want
+    sigma, mu = torch.std_mean(x, dim=-1, correction=0)
+    per_row = [torch.std_mean(x[r:r + 1], dim=-1, correction=0)
+               for r in range(k)]
+    batched_differs = not all(
+        torch.equal(sigma[r], s[0]) and torch.equal(mu[r], m[0])
+        for r, (s, m) in enumerate(per_row))
+    misaligned = [r for r in range(k) if x[r:r + 1].data_ptr() % 16]
+    misaligned_differs = not all(
+        torch.equal(torch.stack(per_row[r]),
+                    torch.stack(torch.std_mean(x[r:r + 1].clone(), dim=-1,
+                                               correction=0)))
+        for r in misaligned)
+    torch.cuda.synchronize()
+    del x, accs, q
+    torch.cuda.empty_cache()
+    log(f"dist codec at (1, {n}), {k} rows: encode_hist, decode and "
+        f"decode_add equal their plain versions (codes, counts exact; "
+        f"codebook max|err|={worst:.3g}); one-row encode bitwise equal to "
+        f"the {k}-row encode; a batched std_mean over {k} rows "
+        f"{'differs from' if batched_differs else 'equals'} one call per "
+        f"row; on the misaligned rows {misaligned} std_mean "
+        f"{'differs from' if misaligned_differs else 'equals'} std_mean of "
+        f"an aligned copy")
+    return {"batched_std_mean_differs": batched_differs,
+            "misaligned_std_mean_differs": misaligned_differs,
+            "codebook_max_abs_err": worst}
+
+
+def dist_history_check(hist_sim, hist_dist) -> None:
+    torn = [("sync_fallback" in r) for r in hist_dist]
+    if torn != [("sync_fallback" in r) for r in hist_sim] or not any(torn):
+        raise AssertionError(f"dist: sync_fallback flags {torn} vs the "
+                             f"simulated trainer's")
+    for key in ("loss", "ring_order", "live"):
+        got, want = [r[key] for r in hist_dist], [r[key] for r in hist_sim]
+        if got != want:
+            raise AssertionError(f"dist: {key} {got} vs simulated {want}")
+
+
+def dist_reduction_launches(backend, k: int, ring) -> list:
+    """Per reduction that ran, the launches summed over the ranks must be
+    k x ``codec_calls`` of the hops it ran (the torn ring's and the
+    restart's too); every codec call launched its kernel."""
+    from repro_torch.core import ring_reduce as rr
+    out = []
+    for rec in backend.reductions:
+        want = {n: rec["ranks"] * c for n, c in rr.codec_calls(
+            k, ring, rec["fused"], hops=rec["hops"]).items()}
+        if rec["launches"] != want or rec["calls"] != want:
+            raise AssertionError(f"dist: reduction of {rec['hops']} hops "
+                                 f"launched {rec['launches']} (calls "
+                                 f"{rec['calls']}), want {want}")
+        out.append(rec["launches"])
+    return out
+
+
+def train_distributed() -> dict:
+    """Phase 9's main path (``DIST``): the simulated trainer first (kept:
+    history, parameters and anchor on the host), then the same trainer
+    with ``DistSyncBackend`` over a (slots,) rank mesh on the card. The
+    ranks' codec counts are set to 0 just before the distributed run and
+    read just after."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.sync_engine import leaves
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import step as ts
+    d = DIST
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(d["arch"]), n_layers=d["n_layers"])
+    model = get_model(cfg, "cuda")
+    n_params = sum(p.numel() for p in leaves(model.init(d["seed"])))
+    probe = dist_codec_rows(-(-n_params // d["slots"]), d["slots"])
+    tr = dist_trainer(model, model.init(d["seed"]))
+    t0 = time.perf_counter()
+    hist_sim = tr.run(d["outer_steps"])
+    torch.cuda.synchronize()
+    sim_wall = time.perf_counter() - t0
+    sim_params = [p[0].cpu() for p in leaves(tr.params)]
+    sim_anchor = tr.outer.anchor_flat.cpu()
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    with make_host_mesh(d["slots"], timeout=300.0) as mesh:
+        backend = ts.DistSyncBackend(mesh, "data")
+        tr = dist_trainer(model, model.init(d["seed"]), backend)
+        card = []
+        tr.boundary_hook = lambda t, trainer: card.append(
+            torch.cuda.mem_get_info())
+        mesh.call(ts.rank_codec_counts, True)
+        reset_codec_counts()
+        t0 = time.perf_counter()
+        hist = tr.run(d["outer_steps"])
+        torch.cuda.synchronize()
+        dist_wall = time.perf_counter() - t0
+        ranks = mesh.call(ts.rank_codec_counts)
+        controller = codec_counts()
+        launches = {n: sum(r["launches"][n] for r in ranks) for n in CODEC}
+        dist_history_check(hist_sim, hist)
+        for got, want in zip(leaves(tr.params), sim_params):
+            if not torch.equal(got[0].cpu(), want):
+                raise AssertionError("dist: parameters differ from the "
+                                     "simulated trainer's")
+        if not torch.equal(tr.outer.anchor_flat.cpu(), sim_anchor):
+            raise AssertionError("dist: anchor_flat differs from the "
+                                 "simulated trainer's")
+        if backend.recompiles != 1:
+            raise AssertionError(f"dist: {backend.recompiles} ring builds")
+        per_red = dist_reduction_launches(backend, tr.k, tr.cfg.diloco.ring)
+        total = {n: sum(p[n] for p in per_red) for n in CODEC}
+        if launches != total:
+            raise AssertionError(f"dist: rank launches {launches} vs the "
+                                 f"reductions' {total}")
+        # the controller's own launches: the EF round trip of each begin
+        begins = len(hist)
+        want_c = dict.fromkeys(CODEC, 0)
+        want_c.update(encode_hist=begins, decode=begins)
+        if controller != want_c:
+            raise AssertionError(f"dist: controller launches {controller},"
+                                 f" want {want_c} (one EF round trip a "
+                                 f"begin)")
+        peak = torch.cuda.max_memory_allocated()
+        used = max(total_b - free for free, total_b in card)
+        for h in hist:
+            extra = ""
+            if "sync_fallback" in h:
+                fb = h["sync_fallback"]
+                extra = (f" torn_by={fb['torn_by']} after {fb['hops_done']}"
+                         f" hop(s)")
+            log(f"dist step {h['outer_step']}: live={h['live']} "
+                f"loss={h['loss']:.4f} inner={h['inner_s'] * 1e3:.1f}ms "
+                f"hops_ms={[round(c * 1e3, 1) for c in h['inner_hop_s']]} "
+                f"boundary={h['sync_s'] * 1e3:.1f}ms{extra}")
+        for i, rec in enumerate(backend.reductions):
+            hops = [{f: round(v * 1e3, 2) for f, v in ht.items()}
+                    for ht in rec["hop_times"]]
+            log(f"dist reduction {i}: {rec['hops']} hops over "
+                f"{rec['ranks']} ranks, launches {json.dumps(rec['launches'])}"
+                f" (= {rec['ranks']} x codec_calls), per hop ms (max over "
+                f"ranks) {json.dumps(hops)}")
+        hop_ms = [ht for rec in backend.reductions for ht in rec["hop_times"]]
+        mean = {f: 1e3 * sum(h[f] for h in hop_ms) / len(hop_ms)
+                for f in hop_ms[0]}
+        log(f"dist main path: {d['arch']} depth {d['n_layers']} "
+            f"params={n_params} slots={tr.k} ({tr.k} rank processes on one "
+            f"card, time-sliced: no MPS) recompiles={backend.recompiles} "
+            f"launches={json.dumps(launches)} (ranks) + {json.dumps(controller)}"
+            f" (controller, EF); bitwise equal to the simulated trainer "
+            f"(history, params, anchor); sim wall={sim_wall:.1f}s dist "
+            f"wall={dist_wall:.1f}s drain={hist[-1]['drain_s'] * 1e3:.1f}ms"
+            f" mean hop ms {json.dumps({f: round(v, 2) for f, v in mean.items()})}"
+            f" controller peak={peak / 2**30:.2f}GiB card used "
+            f"(all processes)={used / 2**30:.2f}GiB")
+        if peak >= PEAK_LIMIT_BYTES:
+            raise AssertionError(f"dist phase peak {peak / 2**30:.2f} GiB")
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    hier = dist_hierarchical(n_params)
+    log(f"dist phase: {time.perf_counter() - t_phase:.1f}s")
+    return {"launches": launches, "peak_bytes": peak, "hier": hier,
+            "probe": probe, "mean_hop_ms": mean}
+
+
+def dist_hierarchical(n: int) -> dict:
+    """A (2, 2) rank mesh (WAN x local, both gloo) reduces two random
+    rows of ``n`` through ``DistRingSyncOp`` with ``hierarchy(...)``;
+    the result must equal each 1/2 slice ringed by the simulator with
+    its own codebooks, concatenated, bit for bit."""
+    import torch.nn.functional as F
+    from repro_torch.core import elastic_mesh as em
+    from repro_torch.core import ring_reduce as rr
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import step as ts
+    wan, local = DIST_HIER
+    cfg = rr.RingConfig()
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    xs = torch.randn((wan, n), generator=gen, device="cuda").mul_(1e-3)
+    w = torch.ones((wan,), device="cuda")
+    order = tuple(reversed(range(wan)))
+    with make_mesh((wan, local), ("data", "model"), timeout=300.0) as mesh:
+        hier = em.hierarchy(mesh, "data")
+        pr = ts.DistSyncPrograms(mesh, "data", n, cfg, ring_order=order,
+                                 hierarchy=hier)
+        t0 = time.perf_counter()
+        out = ts.DistRingSyncOp(pr, xs, weights=w).finish()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rec = pr.log[-1]
+    want_l = {k: rec["ranks"] * c
+              for k, c in rr.codec_calls(wan, cfg, False).items()}
+    if rec["launches"] != want_l:
+        raise AssertionError(f"dist hierarchical: launches "
+                             f"{rec['launches']}, want {want_l}")
+    sl = pr.slice_len
+    pad = F.pad(xs, (0, hier.n_local * sl - n))
+    del xs
+    for i in range(hier.n_local):
+        part = rr.simulate_ring_all_reduce(pad[:, i * sl:(i + 1) * sl],
+                                           order, cfg, w)
+        hi = min((i + 1) * sl, n)
+        if not torch.equal(part[:, :hi - i * sl], out[:, i * sl:hi]):
+            raise AssertionError(f"dist hierarchical: slice {i} differs "
+                                 f"from the per-slice simulator")
+        del part
+    del pad, out
+    torch.cuda.empty_cache()
+    dist_codec_rows(pr.chunk, wan)
+    hops = [{f: round(v * 1e3, 2) for f, v in ht.items()}
+            for ht in rec["hop_times"]]
+    log(f"dist hierarchical ({wan}, {local}) mesh, local group gloo: "
+        f"{wan} x {n} rows bitwise equal to the per-slice simulator, "
+        f"launches {json.dumps(rec['launches'])} (= {rec['ranks']} x "
+        f"codec_calls), {wall * 1e3:.1f} ms, per hop ms {json.dumps(hops)}")
+    return {"wall_s": wall, "launches": rec["launches"], "hops": hops}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--dist-slots", type=int, default=None,
+                    help="run only phase 9 (after the build) with this "
+                         "many DiLoCo slots, and print no result: how "
+                         "its slot count was sized")
+    args = ap.parse_args(argv)
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False     # fp32 stays fp32
     torch.backends.cudnn.allow_tf32 = False
     smi = environment()
     build()
+    if args.dist_slots is not None:
+        DIST["slots"] = args.dist_slots
+        train_distributed()
+        log(f"phase 9 alone at {args.dist_slots} slots passed in "
+            f"{time.perf_counter() - t0:.1f}s")
+        return
     kernels = ([check_flash_decode()] + check_int8_codec()
                + [check_flash_decode_paged()])
     check_reduced_model()
@@ -1934,6 +2267,11 @@ def main() -> None:
     for entry in kernels[1:5]:
         if entry["name"] in ckpt["kernels"]:
             entry.update(ckpt["kernels"][entry["name"]])
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist = train_distributed()
+    for entry in kernels[1:5]:
+        entry["launches_dist"] = dist["launches"][entry["name"]]
     gc.collect()
     torch.cuda.empty_cache()
     log(f"total {time.perf_counter() - t0:.1f}s")

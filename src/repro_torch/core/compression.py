@@ -11,7 +11,8 @@ The JAX package writes these in plain ``jnp`` (no Pallas kernel), so
 they stay plain PyTorch on either device. Row-wise like
 ``kernels/ref.py``: ``(rows, n)`` in, one codebook per row out (the JAX
 package ``vmap``s its flat functions over rows). sigma is the population
-std (``jnp.std``), hence ``correction=0``. Bucket sums add in fp64 and
+std (``jnp.std``), hence ``correction=0``, one reduction call per row
+(``ref.row_std_mean``). Bucket sums add in fp64 and
 round to fp32 once, counts are integers; the reference adds fp32 terms
 one after another and counts in fp32, so codebooks agree to rounding.
 """
@@ -21,6 +22,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.ref import row_std_mean
 
 NUM_BUCKETS4 = 16
 CLIP_SIGMAS = 6.0
@@ -40,8 +43,9 @@ class Quantized4(NamedTuple):
 def quantize4(x: torch.Tensor) -> Quantized4:
     """int4 quantization of each row of ``x`` (rows, n)."""
     xf = x.float()
-    sigma, mu = torch.std_mean(xf, dim=-1, correction=0, keepdim=True)
-    half = CLIP_SIGMAS * sigma
+    sigma, mu = row_std_mean(xf)
+    half = CLIP_SIGMAS * sigma[:, None]
+    mu = mu[:, None]
     lo = mu - half
     width = torch.clamp_min(2 * half / NUM_BUCKETS4, _EPS)
     codes = torch.clamp(torch.floor((xf - lo) / width), 0,
@@ -51,11 +55,14 @@ def quantize4(x: torch.Tensor) -> Quantized4:
                        device=x.device)
     counts = torch.empty((rows, NUM_BUCKETS4), dtype=torch.int64,
                          device=x.device)
-    for b in range(NUM_BUCKETS4):     # 16 masked reductions: deterministic
-        hit = codes == b
-        counts[:, b] = hit.sum(dim=-1)
-        sums[:, b] = torch.where(hit, xf, 0.0).sum(dim=-1,
-                                                   dtype=torch.float64)
+    # 16 masked reductions a row: deterministic, and a row's bits do
+    # not depend on how many rows share the call
+    for r in range(rows):
+        for b in range(NUM_BUCKETS4):
+            hit = codes[r:r + 1] == b
+            counts[r, b] = hit.sum()
+            sums[r, b] = torch.where(hit, xf[r:r + 1], 0.0).sum(
+                dim=-1, dtype=torch.float64)[0]
     centers = lo + (torch.arange(NUM_BUCKETS4, dtype=torch.float32,
                                  device=x.device) + 0.5) * width
     means = (sums / counts.clamp_min(1)).float()

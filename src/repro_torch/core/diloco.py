@@ -31,7 +31,10 @@ Error feedback adds each worker's residual of the last quantization to
 its pseudo-gradient (``core/compression.py``); under the delayed overlap
 the residual has one slot per interleaved anchor lineage.
 
-Not ported yet: the distributed ``outer_sync`` (shard_map).
+The distributed backend (``train/step.py``'s ``DistSyncBackend``) stages
+the same pseudo-gradients (``_sim_pseudograds``) into a ring of rank
+processes and returns the same ``OuterSyncHandle``. Not ported yet: the
+FSDP-sharded ``outer_sync`` (shard_map over a sharded anchor).
 """
 from __future__ import annotations
 
@@ -68,6 +71,13 @@ class DiLoCoConfig:
     #             pseudo-gradient is applied one phase late (§2.2)
     overlap: str = "none"
     error_feedback: bool = False
+    # hierarchical reduce (paper's ElasticDeviceMesh split): each rank
+    # rings only its intra-node slice over the WAN (DiLoCo) axis and the
+    # full vector is rebuilt intra-node — per-rank WAN bytes / n_local.
+    # Distributed backend only (train.step.DistSyncBackend); codebooks
+    # become per-slice, so results are bit-identical to the PER-SLICE
+    # simulator rather than the flat one (tested).
+    hierarchical: bool = False
 
     @property
     def ring(self) -> RingConfig:
@@ -147,16 +157,19 @@ def _sim_pseudograds(stacked_params, state: OuterState,
               else eng.flatten(state.anchor))
     thetas = eng.flatten_rows(stacked_params,
                               dtype=_rows_dtype(stacked_params))
+    fused_src = (a_flat, thetas) if _fused_src_ok(cfg) else None
     pgs = a_flat[None, :] - thetas           # fp32: widening is exact
+    del thetas                               # only fused_src keeps it
     new_residuals = state.residual
     if cfg.error_feedback:
+        # in place on the fresh pgs buffer: the same bits, two (k, n)
+        # fp32 buffers fewer at the peak
         res = state.residual[ef_slot] if state.residual.dim() == 3 \
             else state.residual
-        pgs = pgs + res
+        pgs.add_(res)
         deqs = _ef_roundtrip(pgs, cfg)
-        new_residuals = pgs - deqs
+        new_residuals = pgs.sub_(deqs)
         pgs = deqs
-    fused_src = (a_flat, thetas) if _fused_src_ok(cfg) else None
     return k, any_params, a_flat, pgs, new_residuals, fused_src
 
 
@@ -258,7 +271,11 @@ class OuterSyncHandle:
     def abort(self) -> None:
         """Discard this boundary's sync: drop the staged accumulators
         and retained inputs so nothing can be applied. Further
-        ``finish``/``resync`` raises :class:`SyncAbortedError`."""
+        ``finish``/``resync`` raises :class:`SyncAbortedError`. An op
+        with ranks behind it (``train.step.DistRingSyncOp``) is closed
+        first, so the ranks forget it."""
+        if hasattr(self.op, "close"):
+            self.op.close()
         self.aborted = True
         self.op = None
 

@@ -32,8 +32,10 @@ makes ``nb`` fused-encode, ``nb*(k-1)`` encode, ``nb*(k-1)`` decode_add
 and ``nb*k`` decode calls on the fused main path (``codec_calls``, hop
 by hop ``hop_codec_calls``). The accumulator is updated in place.
 ``chunk_norms`` is the admission layer's per-chunk norm sideband,
-computed in fp64 on the rows' own device. The distributed ring
-(``ring_all_reduce``) is not ported yet.
+computed in fp64 on the rows' own device. The distributed ring, one
+rank process per position, runs the same hop bodies
+(``train/step.py``'s ``DistRingSyncOp``); the reference's in-region
+``ring_all_reduce`` has no counterpart.
 """
 from __future__ import annotations
 
@@ -189,12 +191,22 @@ def _roll1(payload):
 # -- hop bodies ---------------------------------------------------------------
 
 
+# ``k`` is always the RING size; the row count is ``positions.shape[0]``:
+# all k positions in the simulator, ONE row in a rank process of the
+# distributed ring (``train/step.py``), where ``positions`` is the rank's
+# own position and ``shift`` a point-to-point exchange along the ring in
+# place of ``torch.roll``. The codec's per-row results do not depend on
+# how many rows a call holds, so both ways give the same bits.
+
+
 def _rs_hop_rows(s: int, accs, k: int, bsize: int, nb: int,
-                 cfg: RingConfig, fused_operands=None):
-    """One reduce-scatter hop over all ring positions and buckets.
-    ``fused_operands=(a_flat, t_pos, w_pos)`` routes the transmit
-    through the fused pseudo-gradient quantizer (hop 0 only)."""
-    positions = torch.arange(k, device=accs.device)
+                 cfg: RingConfig, fused_operands=None, *,
+                 positions=None, shift=_roll1):
+    """One reduce-scatter hop across the given ring positions and
+    buckets. ``fused_operands=(a_flat, t_pos, w_pos)`` routes the
+    transmit through the fused pseudo-gradient quantizer (hop 0 only)."""
+    if positions is None:
+        positions = torch.arange(k, device=accs.device)
     send_idx = torch.remainder(positions - s, k)
     recv_idx = torch.remainder(positions - s - 1, k)
     staged = []
@@ -209,7 +221,7 @@ def _rs_hop_rows(s: int, accs, k: int, bsize: int, nb: int,
             staged.append(_quant_rows(
                 _get_bucket_rows(accs, send_idx, b, nb, bsize), cfg))
     for b, (payload, deq) in enumerate(staged):
-        payload = _roll1(payload)
+        payload = shift(payload)
         acc_vals = _get_bucket_rows(accs, recv_idx, b, nb, bsize)
         _set_bucket_rows(accs, recv_idx, b,
                          _rx_add_rows(payload, deq, acc_vals, cfg),
@@ -217,10 +229,13 @@ def _rs_hop_rows(s: int, accs, k: int, bsize: int, nb: int,
     return accs
 
 
-def _ag_init_rows(accs, k: int, bsize: int, nb: int, cfg: RingConfig):
+def _ag_init_rows(accs, k: int, bsize: int, nb: int, cfg: RingConfig, *,
+                  positions=None):
     """All-gather prologue: every owner quantizes its reduced chunk ONCE
     (per bucket) and keeps the decoded values. Returns (accs, payloads)."""
-    own_idx = torch.remainder(torch.arange(k, device=accs.device) + 1, k)
+    if positions is None:
+        positions = torch.arange(k, device=accs.device)
+    own_idx = torch.remainder(positions + 1, k)
     payloads = []
     for b in range(nb):
         vals = _get_bucket_rows(accs, own_idx, b, nb, bsize)
@@ -231,14 +246,16 @@ def _ag_init_rows(accs, k: int, bsize: int, nb: int, cfg: RingConfig):
 
 
 def _ag_hop_rows(s: int, accs, payloads, k: int, bsize: int, nb: int,
-                 cfg: RingConfig):
+                 cfg: RingConfig, *, positions=None, shift=_roll1):
     """One all-gather hop: shift every bucket's forwarded codes one
     position and decode in place."""
-    recv_idx = torch.remainder(torch.arange(k, device=accs.device) - s, k)
+    if positions is None:
+        positions = torch.arange(k, device=accs.device)
+    recv_idx = torch.remainder(positions - s, k)
     deq = _row_deq(cfg, bsize)
     new_payloads = []
     for b in range(nb):
-        payload = _roll1(payloads[b])
+        payload = shift(payloads[b])
         _set_bucket_rows(accs, recv_idx, b, deq(payload), nb, bsize)
         new_payloads.append(payload)
     return accs, tuple(new_payloads)

@@ -9,6 +9,7 @@ carries a hash of its source, so an edited source builds anew.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -47,20 +48,28 @@ def build(name: str) -> Path:
     if out.exists():
         return out
     BUILD.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)          # atomic: concurrent builds agree
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    # processes that reach first use together (the rank processes of a
+    # mesh) build once: the others wait on the lock, then find the
+    # library; the kernel releases the lock when its holder dies
+    with open(BUILD / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return out
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+        os.close(fd)
+        try:
+            proc = subprocess.run(
+                [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+                 str(CSRC / f"{name}.cu")],
+                capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}.cu:\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+            os.replace(tmp, out)      # atomic: a reader sees all or none
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
     return out
 
 

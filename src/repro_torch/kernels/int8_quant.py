@@ -32,7 +32,8 @@ two codes makes its atomics collide (``PERF.md``).
 A CUDA tensor launches the kernel (counted in ``<wrapper>.launches``) or
 raises; a CPU tensor runs the plain version (``*_torch`` below, built
 from ``kernels/ref.py``), which is also each kernel's oracle in the
-tests and in ``chip_smoke.py``.
+tests and in ``chip_smoke.py``. ``calls[<wrapper>]`` counts every call
+on either device, so a CPU run can count the codec's work too.
 """
 from __future__ import annotations
 
@@ -46,6 +47,9 @@ from repro_torch.kernels import _build, ref
 NUM_BUCKETS = ref.NUM_BUCKETS
 _MAX_ROWS = 65535             # grid.y
 _MAX_N = 2**31 - 1            # int32 counts
+# every call of each wrapper, on either device (``launches``: the card's)
+calls = dict.fromkeys(("encode_hist", "pseudograd_encode_hist", "decode",
+                       "decode_add"), 0)
 
 
 # -- plain versions -----------------------------------------------------------
@@ -155,6 +159,7 @@ def _check_encode(name, x, lo, width):
 def encode_hist(x: torch.Tensor, lo: torch.Tensor, width: torch.Tensor):
     """x (rows, n) fp32, lo/width (rows,) fp32 -> codes uint8 (rows, n),
     per-row sums fp32 (rows, 256) and counts int32 (rows, 256)."""
+    calls["encode_hist"] += 1
     if x.device.type == "cpu":
         return encode_hist_torch(x, lo, width)
     _check_encode("encode_hist", x, lo, width)
@@ -168,6 +173,7 @@ def pseudograd_encode_hist(anchor: torch.Tensor, theta: torch.Tensor,
                            scale: torch.Tensor | None = None):
     """``encode_hist`` of ``scale * (anchor - theta)`` (per-row ``scale``,
     None = 1) in one read of (anchor, theta)."""
+    calls["pseudograd_encode_hist"] += 1
     if theta.device.type == "cpu":
         return pseudograd_encode_hist_torch(anchor, theta, lo, width,
                                             scale=scale)
@@ -210,6 +216,7 @@ def _decode_launch(name, codes, codebook, acc):
 
 def decode(codes: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """codes uint8 (rows, n), codebook fp32 (rows, 256) -> fp32 (rows, n)."""
+    calls["decode"] += 1
     if codes.device.type == "cpu":
         return decode_torch(codes, codebook)
     out = _decode_launch("decode", codes, codebook, None)
@@ -221,6 +228,7 @@ def decode_add(codes: torch.Tensor, codebook: torch.Tensor,
                acc: torch.Tensor) -> torch.Tensor:
     """``acc + codebook[codes]``, written into ``acc`` (fp32 (rows, n)),
     which is returned."""
+    calls["decode_add"] += 1
     if codes.device.type == "cpu":
         return decode_add_torch(codes, codebook, acc)
     out = _decode_launch("decode_add", codes, codebook, acc)

@@ -45,11 +45,30 @@ class Quantized(NamedTuple):
             self.codebook.shape[0]
 
 
+def row_std_mean(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row population (std, mean) of ``x`` (rows, n), (rows,) fp32
+    each, so that a row's bits depend on its values only (the
+    distributed ring's one-row calls must equal the simulator's k-row
+    ones). On the card a reduction's split depends on the whole shape
+    and on the address's alignment to its 16-byte vector loads (rows of
+    an odd length start misaligned; measured on an H100): so one call
+    per row, on a 16-byte-aligned copy where the row is not."""
+    x = x.float()
+    sigma = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    mu = torch.empty_like(sigma)
+    for r in range(x.shape[0]):
+        row = x[r:r + 1]
+        if row.data_ptr() % 16:
+            row = row.clone()
+        sigma[r], mu[r] = torch.std_mean(row, dim=-1, correction=0)
+    return sigma, mu
+
+
 def quant_params(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row (lo, bucket_width) of the clipped uniform range, (rows,)
     fp32 each. sigma is the population std (``jnp.std``), hence
     ``correction=0``."""
-    sigma, mu = torch.std_mean(x.float(), dim=-1, correction=0)
+    sigma, mu = row_std_mean(x)
     half = CLIP_SIGMAS * sigma
     lo = mu - half
     width = torch.clamp_min(2.0 * half / NUM_BUCKETS, _EPS)

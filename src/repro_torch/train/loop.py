@@ -33,8 +33,9 @@ AdamW state (``step`` included) stay untouched. Parameters and moments
 are updated in place (AdamW, the post-sync reset, a joiner's slot,
 poison); the sync in flight keeps copies of what it needs.
 
-Not ported yet (raises ``NotImplementedError``): the distributed sync
-backend.
+With ``sync_backend=train.step.DistSyncBackend(mesh, axis)`` the outer
+sync runs as a ring of rank processes (one wire hop per command, the
+same handle surface), which gives the simulator's results bit for bit.
 """
 from __future__ import annotations
 
@@ -103,9 +104,6 @@ class ElasticTrainer:
                  batch_provider: Callable | None = None,
                  boundary_hook: Callable | None = None,
                  sync_backend=None):
-        if sync_backend is not None:
-            raise NotImplementedError(
-                "the distributed sync backend is not ported yet")
         self.model = model
         self.device = torch.device(model.device)
         self.cfg = cfg
@@ -116,6 +114,10 @@ class ElasticTrainer:
         # bookkeeping, and what it returns goes into the history
         self.batch_provider = batch_provider
         self.boundary_hook = boundary_hook
+        # sync_backend (train.step.DistSyncBackend) stages the outer
+        # sync as a ring of rank processes; None = the stacked simulator
+        # (the same OuterSyncHandle surface either way)
+        self.sync_backend = sync_backend
         self.optimizer = AdamW(lr=cfg.inner_lr)
         self.retry = RetryPolicy()
         self.slots = SlotAssignment(cfg.max_workers)
@@ -527,12 +529,25 @@ class ElasticTrainer:
         return topology.exclude_slots(order, q) if q else order
 
     def _begin_sync(self, weights, ef_slot: int) -> dl.OuterSyncHandle:
+        """Stage the outer sync: through the distributed backend when
+        one is plugged in, the simulator ring otherwise (same handle
+        surface either way)."""
+        if self.sync_backend is not None:
+            return self.sync_backend.begin(
+                self.params, self.outer, self.cfg.diloco,
+                ring_order=self._ring_for_sync(), weights=weights,
+                ef_slot=ef_slot)
         return dl.begin_outer_sync_sim(
             self.params, self.outer, self.cfg.diloco,
             ring_order=self._ring_for_sync(), weights=weights,
             ef_slot=ef_slot)
 
     def _outer_sync(self, weights):
+        if self.sync_backend is not None:
+            # non-overlapped path through the distributed ring: begin +
+            # immediate finish (the EF residual is slot-free here)
+            h = self._begin_sync(weights, ef_slot=0)
+            return dl.finish_outer_sync_sim(h, self.params, self.outer)
         return dl.outer_sync_sim(self.params, self.outer, self.cfg.diloco,
                                  ring_order=self._ring_for_sync(),
                                  weights=weights)

@@ -120,8 +120,16 @@ def test_sample_tokens_masks():
     assert [tengine.bucket_batch(n) for n in (1, 3, 4, 5)] == [1, 4, 4, 8]
 
 
-def test_port_imports_neither_jax_nor_repro():
-    code = ("import sys, repro_torch, repro_torch.launch.serve, "
+def test_port_imports_neither_jax_nor_repro(tmp_path):
+    """No module of the port imports JAX or ``repro``: neither in an
+    importing process nor in the rank processes of a distributed ring
+    (a 2-rank CPU mesh runs one reduction, then each rank lists its
+    modules)."""
+    bad = ("bad = [m for m in sys.modules if m == 'jax' or "
+           "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+           "m.startswith('repro.') or m == 'ml_dtypes' or "
+           "m.startswith('ml_dtypes.')]\n")
+    code = ("import sys, torch, repro_torch, repro_torch.launch.serve, "
             "repro_torch.serving.engine, repro_torch.serving.paging, "
             "repro_torch.kernels.flash_decode, "
             "repro_torch.convert, repro_torch.launch.train, "
@@ -132,6 +140,8 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.core.diloco, repro_torch.core.fault_tolerance, "
             "repro_torch.core.elastic_mesh, repro_torch.core.topology, "
             "repro_torch.core.compression, repro_torch.core.validation, "
+            "repro_torch.core.rank_mesh, repro_torch.train.step, "
+            "repro_torch.launch.mesh, repro_torch.sharding.partition, "
             "repro_torch.optim.adamw, "
             "repro_torch.optim.nesterov, repro_torch.optim.schedules, "
             "repro_torch.data.pipeline, repro_torch.models.common, "
@@ -144,13 +154,21 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.checkpointing.gossip, "
             "repro_torch.checkpointing.swarm, "
             "repro_torch.checkpointing.streaming\n"
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
-            "m.startswith('repro.') or m == 'ml_dtypes' or "
-            "m.startswith('ml_dtypes.')]\n"
-            "assert not bad, bad\n")
+            + bad + "assert not bad, bad\n\n"
+            "def rank_modules(ctx):\n"
+            "    " + bad.replace("\n", "\n    ") + "return bad\n\n"
+            "if __name__ == '__main__':\n"
+            "    from repro_torch.launch.mesh import make_host_mesh\n"
+            "    from repro_torch.train import step\n"
+            "    with make_host_mesh(2, device='cpu') as mesh:\n"
+            "        pr = step.DistSyncPrograms(mesh, 'data', 64,\n"
+            "            repro_torch.core.ring_reduce.RingConfig())\n"
+            "        step.DistRingSyncOp(pr, torch.randn(2, 64)).finish()\n"
+            "        assert mesh.call(rank_modules) == [[], []]\n")
+    script = tmp_path / "boundary.py"
+    script.write_text(code)
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
-    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+    subprocess.run([sys.executable, str(script)], check=True, env=env,
                    timeout=120)
 
 
