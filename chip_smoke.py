@@ -90,8 +90,23 @@ Phases, each of which raises on failure (nothing is caught):
    gloo) reduces 2 x 442,505,216 rows hierarchically, bitwise equal to
    the per-slice simulator (its chunk's rows checked as above).
 
+10. main path, swarm serving: INTELLECT-1 at full width, depth cut to
+   6, split into 3 stages of 2 layers with 2 ``StageServer`` replicas
+   each over loopback (views of one weight set on the card), driven by
+   a ``SwarmRouter`` on the serving trace (8 requests, 32 new tokens,
+   greedy). Runs: the B = 1 engine; the healthy chain with dense stage
+   caches and with paged stage pools (last-stage logits bitwise the
+   B = 1 reference's); each again with stage 1's first holder crashed 3
+   responses in (failover, re-prefill); stage 1 published into a seed
+   store, adopted by a fresh server by swarm fetch and served by it
+   alone. Every run's tokens equal the B = 1 engine's, paged pools
+   drain, and kernel 5 (dense) or 6 (paged) launches once per layer per
+   computed ``decode_stage``, the other never; kernels 5 and 6 are held
+   against their plain versions at B = 1 and timed there.
+
 ``python3 chip_smoke.py --dist-slots N`` builds and runs phase 9 alone
-with N slots (how its slot count was sized) and prints no result.
+with N slots (how its slot count was sized), ``--swarm-only`` phase 10
+alone; neither prints a result.
 
 The last three lines are the kernels (JSON), the card (name, power
 limit) and the result.
@@ -163,6 +178,17 @@ DIST = {"arch": "internlm2-1.8b", "n_layers": 1, "slots": 3,
         "seq_len": 512, "batch_per_worker": 4, "inner_lr": 3e-4, "seed": 0}
 DIST_EVENTS = [(2, "crash", 2, "")]
 DIST_HIER = (2, 2)     # (WAN, local) ranks of the hierarchical check
+# phase 10: swarm serving of INTELLECT-1 at full width, depth cut to 6
+# (2,359,296,000 parameters, 4.72 GB bf16): publishing and adopting a
+# stage go through the chunk store's host deflate and the swarm fetch,
+# about 11 and 20 s a GB (phase 8's base write and fetch on the H100
+# machine's host), so full depth would take minutes. 3
+# stages of 2 layers, 2 replicas a stage, max_len 512, the serving trace
+# (8 requests of 32-64 random prompt tokens, 32 new, greedy)
+SWARM = {"arch": "intellect-1", "n_layers": 6, "stages": 3, "replicas": 2,
+         "max_len": 512, "requests": 8, "prompt_len": 64, "max_new": 32,
+         "seed": 0}
+SWARM_B1_LENGTHS = (1, 63, 95, 511)   # kernels 5 and 6 at B = 1
 # (B, S_max, Hk, G, dh, lengths): INTELLECT-1's attention at a long cache,
 # where the bytes rather than the latency chain should set the pace
 FD_LONG = (4, 8192, 8, 4, 128, [8192, 4096, 2048, 1])
@@ -2189,12 +2215,476 @@ def dist_hierarchical(n: int) -> dict:
     return {"wall_s": wall, "launches": rec["launches"], "hops": hops}
 
 
+# -- phase 10: swarm serving --------------------------------------------------
+
+
+def b1_flash_decode() -> dict:
+    """Kernels 5 and 6 at the swarm path's shape: B = 1 (one request a
+    stage call) at INTELLECT-1's heads, S_max 512, at lengths
+    ``SWARM_B1_LENGTHS``; kernel 6 on a permuted pool of 16-cell blocks
+    the size of a stage server's default pool (4 requests' worth + trash),
+    bitwise equal to kernel 5 on the gathered view. Each against its plain
+    version within ``TOL``, timed beside SDPA (kernel 6: the gather +
+    SDPA)."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models.attention import (PagedKVCache, decode_valid_mask,
+                                              paged_view)
+    s_max, hk, g, dh, blk = 512, 8, 4, 128, 16
+    out = {"flash_decode": {"ms": [], "bound_ms": [], "library_ms": [],
+                            "max_abs_err": 0.0},
+           "flash_decode_paged": {"ms": [], "bound_ms": [], "library_ms": [],
+                                  "max_abs_err": 0.0}}
+    for i, n in enumerate(SWARM_B1_LENGTHS):
+        q, k, v, length = flash_decode_inputs(1, s_max, hk, g, dh,
+                                              torch.bfloat16, [n], seed=40 + i)
+        kp, vp, table = paged_pool(k, v, [n], blk, seed=40 + i)
+        pad = torch.randn((4 * s_max // blk + 1 - kp.shape[0], blk, hk, dh),
+                          device="cuda").to(kp.dtype)
+        kp, vp = torch.cat([kp, pad]), torch.cat([vp, pad])  # more blocks
+        dense = fd.flash_decode(q, k, v, length)
+        paged = fd.flash_decode_paged(q, kp, vp, table, length)
+        torch.cuda.synchronize()
+        view = paged_view(PagedKVCache(kp, vp, table, length))
+        if not torch.equal(paged, fd.flash_decode(q, view.k, view.v, length)):
+            raise AssertionError(f"flash_decode_paged B=1 length {n}: not "
+                                 "bitwise equal to flash_decode on the "
+                                 "gathered view")
+        valid = decode_valid_mask(length, s_max, None)[:, None, None, :]
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        bound, _ = flash_decode_bound(q, k, length, None)
+        for name, got, ref, run, library, extra in (
+                ("flash_decode", dense, fd.flash_decode_torch(q, k, v, length),
+                 lambda: fd.flash_decode(q, k, v, length),
+                 lambda: torch.nn.functional.scaled_dot_product_attention(
+                     qt, kt, vt, attn_mask=valid, enable_gqa=True), 0),
+                ("flash_decode_paged", paged,
+                 fd.flash_decode_paged_torch(q, kp, vp, table, length),
+                 lambda: fd.flash_decode_paged(q, kp, vp, table, length),
+                 lambda: torch.nn.functional.scaled_dot_product_attention(
+                     qt, paged_view(PagedKVCache(kp, vp, table, length))
+                     .k.transpose(1, 2), paged_view(PagedKVCache(
+                         kp, vp, table, length)).v.transpose(1, 2),
+                     attn_mask=valid, enable_gqa=True), table.numel() * 4)):
+            err = (got.float() - ref.float()).abs().max().item()
+            if not torch.isfinite(got).all() or err > TOL[torch.bfloat16]:
+                raise AssertionError(f"{name} B=1 length {n}: max |err| "
+                                     f"{err} > {TOL[torch.bfloat16]}")
+            e = out[name]
+            e["max_abs_err"] = max(e["max_abs_err"], err)
+            e["ms"].append(time_ms(run))
+            e["bound_ms"].append(flash_decode_bound(
+                q, k, length, None, extra_bytes=extra)[0])
+            e["library_ms"].append(time_ms(library))
+        del q, k, v, kp, vp, pad, view
+    for name, e in out.items():
+        e.update(lengths=list(SWARM_B1_LENGTHS),
+                 shape={"B": 1, "S_max": s_max, "Hk": hk, "G": g, "dh": dh,
+                        "dtype": "bfloat16"})
+        log(f"kernel {name} B=1 (swarm stage calls) lengths "
+            f"{SWARM_B1_LENGTHS}: max|err|={e['max_abs_err']:.3g} (tol "
+            f"{TOL[torch.bfloat16]}); ms {[round(t, 5) for t in e['ms']]}, "
+            f"bound {[round(t, 6) for t in e['bound_ms']]}, "
+            f"{'gather+' if 'paged' in name else ''}SDPA "
+            f"{[round(t, 5) for t in e['library_ms']]}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def swarm_classes():
+    """A ``SwarmRouter`` that keeps the last stage's logits of every step
+    and the wall time of every stage RPC by (op, stage)."""
+    from repro_torch.serving.swarm_serve import SwarmRouter
+
+    class TimedRouter(SwarmRouter):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.logits, self.rpc_s = [], {}
+
+        def _call(self, addr, header, arr):
+            t0 = time.perf_counter()
+            out = super()._call(addr, header, arr)
+            self.rpc_s.setdefault((header["op"], header["sid"]), []).append(
+                time.perf_counter() - t0)
+            return out
+
+        def _prefill_chain(self, req):
+            self.logits.append(super()._prefill_chain(req))
+            return self.logits[-1]
+
+        def _decode_chain(self, req):
+            self.logits.append(super()._decode_chain(req))
+            return self.logits[-1]
+    return TimedRouter
+
+
+class SwarmFleet:
+    """``SWARM``'s fleet on the card: ``stages x replicas`` StageServers
+    over loopback serving views of one weight set, a gossip and a pooled
+    ``TimedRouter`` over them; ``close`` stops every server and thread."""
+
+    def __init__(self, cfg, params, root: Path, kv_layout: str,
+                 extra=(), dead=()):
+        from repro_torch.checkpointing import (ChunkGossip, ChunkStore,
+                                               PeerConnPool)
+        from repro_torch.models import registry
+        from repro_torch.serving.swarm_serve import StageServer
+        s = SWARM
+        self.servers = {}
+        for sid, stage in enumerate(registry.make_stages(cfg, s["stages"])):
+            sp = stage.slice_params(params)
+            for r in range(s["replicas"]):
+                srv = StageServer(cfg, ChunkStore(root / f"{kv_layout}{sid}{r}"),
+                                  k_stages=s["stages"], max_len=s["max_len"],
+                                  kv_layout=kv_layout)
+                srv.serve_stage(sid, sp)
+                self.servers[(sid, r)] = srv
+        for key in dead:                  # killed before the first poll
+            self.servers[key].crash()
+        self.pool = PeerConnPool(timeout=30.0)
+        self.gossip = ChunkGossip(
+            [v.addr for v in self.servers.values()] + [e.addr for e in extra],
+            timeout=30.0, pool=self.pool)
+        self.gossip.poll_once()
+        self.router = swarm_classes()(s["stages"], self.gossip, timeout=30.0,
+                                      pool=self.pool, max_len=s["max_len"])
+
+    def close(self) -> None:
+        self.gossip.stop()
+        self.pool.close()
+        for srv in self.servers.values():
+            srv.close()
+
+
+def swarm_reference(model, params, cfg, reqs) -> tuple[list, list]:
+    """Run 1: the B = 1 single-host engine (ContinuousEngine, one slot,
+    batch-1 admission) on the trace, and the B = 1 monolithic prefill and
+    decode along its tokens (the engine's computation), whose logits the
+    healthy chains must equal bitwise."""
+    import numpy as np
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import ContinuousEngine, bucket_len
+    s = SWARM
+    eng = ContinuousEngine(model, params, batch_slots=1, batch_admit=False,
+                           max_len=s["max_len"])
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = [list(r.out_tokens) for r in reqs]
+    logits = []
+    for r, toks in zip(reqs, tokens):
+        n = len(r.prompt)
+        row = torch.zeros((1, max(min(bucket_len(n), s["max_len"]), n)),
+                          dtype=torch.int32)
+        row[0, :n] = torch.from_numpy(np.asarray(r.prompt, np.int32))
+        cache = tf.init_cache(cfg, 1, s["max_len"])
+        lg, _ = tf.prefill(cfg, params, row.cuda(), cache,
+                           prompt_len=torch.tensor([n], dtype=torch.int32,
+                                                   device="cuda"))
+        steps = [lg.cpu()]
+        for t in toks[:-1]:
+            lg, _ = tf.decode_step(cfg, params, torch.tensor(
+                [[t]], dtype=torch.int32, device="cuda"), cache)
+            steps.append(lg.cpu())
+        if [int(x[0].float().argmax()) for x in steps] != toks:
+            raise AssertionError("swarm reference: the B=1 monolithic decode's"
+                                 " greedy tokens differ from the B=1 engine's")
+        logits.append(steps)
+    ntok = sum(len(t) for t in tokens)
+    log(f"swarm run 1, B=1 engine: {ntok} tokens in {wall:.3f}s "
+        f"({ntok / wall:.1f} tok/s); its B=1 monolithic decode gives the "
+        f"same greedy tokens")
+    return tokens, logits
+
+
+def swarm_run(label, fleet, prompts, ref_tokens, ref_logits, *, kernel,
+              per_stage, crash=None) -> dict:
+    """Drive ``prompts`` through ``fleet``'s router; the decode kernel
+    counts are set to 0 just before and read just after. Gates: tokens
+    equal the reference's, and every step's last-stage logits its
+    logits bitwise (the recovered steps too: the router replays a failed
+    stage's prefix as the uninterrupted run computed it); ``kernel``
+    launched per_stage x the ``decode_stage`` calls the servers answered
+    (k a healthy step; the replay's too), the other decode kernel never;
+    paged pools drained. ``crash`` (a server) fails the stage-1 holder
+    the router plans first 3 responses in, and then one failover and one
+    recovery (the pools of live servers drain; the crashed one's died
+    with it, mid-request)."""
+    from repro_torch.serving.swarm_serve import StageServer
+    router, k = fleet.router, SWARM["stages"]
+    if crash is not None:
+        crash.crash_after = crash.served_chunks + 3
+    reset_decode_counts()
+    t0 = time.perf_counter()
+    outs = [router.generate(p, SWARM["max_new"], rid=f"req{i}", eos_id=1)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = decode_counts()
+    st = dict(router.stats)
+    if outs != ref_tokens:
+        raise AssertionError(f"swarm {label}: greedy tokens differ from the "
+                             "B=1 engine's")
+    decodes = sum(len(v) for (op, _), v in router.rpc_s.items()
+                  if op == "decode_stage")
+    if crash is None and decodes != k * st["decode_steps"]:
+        raise AssertionError(f"swarm {label}: {decodes} decode_stage calls "
+                             f"for {st['decode_steps']} steps of {k} stages")
+    launches = check_launches(f"swarm {label}", counts, kernel,
+                              per_stage * decodes)
+    flat_ref = [x for steps in ref_logits for x in steps]
+    if len(router.logits) != len(flat_ref):
+        raise AssertionError(f"swarm {label}: {len(router.logits)} logit "
+                             f"rows, want {len(flat_ref)}")
+    diffs = [(a.float() - b.float()).abs().max().item()
+             for a, b in zip(router.logits, flat_ref)]
+    if any(diffs):
+        raise AssertionError(f"swarm {label}: logits not bitwise the B=1 "
+                             f"reference's (max |diff| {max(diffs)})")
+    if (st["failovers"], st["recoveries"]) != ((0, 0) if crash is None
+                                                else (1, 1)):
+        raise AssertionError(f"swarm {label}: failovers {st['failovers']}, "
+                             f"recoveries {st['recoveries']}")
+    peak_blocks = 0
+    for srv in fleet.servers.values():
+        if srv.addr in router.dead:       # a crashed server's pool died
+            continue                      # with it, mid-request
+        for ent in srv._pools.values():
+            peak_blocks = max(peak_blocks, ent["pool"].stats["peak_used"])
+            if ent["pool"].used:
+                raise AssertionError(f"swarm {label}: {ent['pool'].used} "
+                                     "blocks still held after release")
+    if kernel == "flash_decode_paged" and not peak_blocks:
+        raise AssertionError(f"swarm {label}: no paged pool was used")
+    ntok = sum(len(o) for o in outs)
+    rpc = {f"{op[0][:-6]}{op[1]}": 1e3 * sum(v) / len(v)
+           for op, v in sorted(router.rpc_s.items())}
+    rpc_max = {f"{op[0][:-6]}{op[1]}": 1e3 * max(v)
+               for op, v in sorted(router.rpc_s.items())}
+    log(f"swarm {label}: {ntok} tokens in {wall:.3f}s "
+        f"({ntok / wall:.1f} tok/s) decode_steps={st['decode_steps']} "
+        f"launches {kernel}={launches} failovers={st['failovers']} "
+        f"recoveries={st['recoveries']} replayed_tokens="
+        f"{st['replayed_tokens']} recovery_s={st['recovery_s']:.4f} "
+        f"fresh_retries={st['fresh_retries']} paged_blocks_peak={peak_blocks}"
+        f" decode_stage calls={decodes}; every step's logits bitwise the B=1 "
+        f"reference's; mean rpc ms "
+        f"{json.dumps({k_: round(v, 3) for k_, v in rpc.items()})}, max "
+        f"{json.dumps({k_: round(v, 3) for k_, v in rpc_max.items()})}")
+    return {"tok_s": ntok / wall, "wall_s": wall, "launches": launches,
+            "stats": st, "rpc_ms": rpc, "paged_blocks_peak": peak_blocks,
+            "decode_stage_calls": decodes}
+
+
+def stage_compute_ms(cfg, params) -> dict:
+    """Each stage's ``decode`` on the card at B = 1 (a fresh stage cache
+    prefilled with 48 tokens), host clock around the call and a
+    synchronize, as a server computes it: mean ms over 20 calls."""
+    from repro_torch.models import registry
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for stage in registry.make_stages(cfg, SWARM["stages"]):
+        sp = stage.slice_params(params)
+        cache = stage.init_cache(1, SWARM["max_len"])
+        if stage.first:
+            x = torch.randint(2, cfg.vocab, (1, 48), generator=gen,
+                              device="cuda", dtype=torch.int32)
+        else:
+            x = torch.randn((1, 48, cfg.d_model), generator=gen,
+                            device="cuda").to(cfg.torch_dtype)
+        stage.prefill(sp, x, cache)
+        one = x[:, :1]
+        times = []
+        for _ in range(23):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, _ = stage.decode(sp, one, cache)
+            y.cpu()
+            times.append(time.perf_counter() - t0)
+        out[stage.index] = 1e3 * sum(times[3:]) / 20
+    return out
+
+
+def recovery_kv_delta(cfg, params, prompt, tokens, n_done: int) -> dict:
+    """Why the port's router replays a failed stage's prefix token by
+    token: when stage 1 fails at decode step ``n_done`` (0-based), the
+    JAX package's recovery rebuilds its KV cache by one prefill over the
+    prefix (an (S, D) product, prefill attention). Against the cache the
+    uninterrupted chain built (prefill, then one (1, D) row a step
+    through the flash-decode kernel), and the last stage's logits of the
+    recovered step against the uninterrupted step's: max |diff| of
+    each, and whether the greedy token survives."""
+    from repro_torch.models import registry
+    from repro_torch.serving.engine import bucket_len
+    stages = registry.make_stages(cfg, SWARM["stages"])
+    sp = [s.slice_params(params) for s in stages]
+    caches = [s.init_cache(1, SWARM["max_len"]) for s in stages]
+
+    def padded(toks):
+        n = len(toks)
+        row = torch.zeros((1, max(min(bucket_len(n), SWARM["max_len"]), n)),
+                          dtype=torch.int32, device="cuda")
+        row[0, :n] = torch.tensor(toks, dtype=torch.int32)
+        return row, torch.tensor([n], dtype=torch.int32, device="cuda")
+    x, plen = padded(prompt)
+    for s, p, c in zip(stages, sp, caches):
+        x, _ = s.prefill(p, x, c, prompt_len=plen)
+    for t in tokens[:n_done + 1]:
+        x = torch.tensor([[t]], dtype=torch.int32, device="cuda")
+        for s, p, c in zip(stages, sp, caches):
+            x, _ = s.decode(p, x, c)
+    want_logits = x
+    prefix = list(prompt) + list(tokens[:n_done + 1])
+    L = len(prefix)
+    x, plen = padded(prefix)
+    x, _ = stages[0].prefill(sp[0], x, stages[0].init_cache(1, SWARM["max_len"]),
+                             prompt_len=plen)
+    rebuilt = stages[1].init_cache(1, SWARM["max_len"])
+    x, _ = stages[1].prefill(sp[1], x, rebuilt, prompt_len=plen)
+    # stage 2 holds the uninterrupted cache one position short: take it
+    # back to L - 1 and append the recovered last position
+    c2 = caches[2]["scan"]
+    c2.length.fill_(L - 1)
+    got_logits, _ = stages[2].decode(sp[2], x[:, L - 1:L], caches[2])
+    a, b = rebuilt["scan"], caches[1]["scan"]
+    kv = max((x[:, :, :L].float() - y[:, :, :L].float()).abs().max().item()
+             for x, y in ((a.k, b.k), (a.v, b.v)))
+    lg = (got_logits.float() - want_logits.float()).abs().max().item()
+    same = int(got_logits[0].float().argmax()) == int(
+        want_logits[0].float().argmax())
+    log(f"swarm one-pass recovery numerics (the JAX package's: stage 1 "
+        f"rebuilt by one prefill over {L} tokens vs built one row a step): "
+        f"max|K/V diff|={kv:.4g}, recovered step max|logit diff|={lg:.4g}, "
+        f"same greedy token: {same}")
+    return {"kv_max_abs_diff": kv, "logit_max_abs_diff": lg,
+            "same_token": same, "prefix_len": L}
+
+
+def swarm_serve_phase() -> dict:
+    """Phase 10 (``SWARM``): INTELLECT-1 at full width, depth cut, served
+    by a 3-stage x 2-replica fleet on the card. Runs: (1) the B = 1
+    engine, (2) the healthy dense chain, (3) the healthy paged chain,
+    (4) dense and (5) paged with stage 1's first holder crashed 3
+    responses in, (6) stage 1 published into a seed store, adopted by a
+    fresh server by swarm fetch, and served by it alone."""
+    from repro_torch.checkpointing import ChunkPeer, ChunkStore
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.registry import get_model
+    from repro_torch.serving.swarm_serve import StageServer, publish_stages
+    s = SWARM
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(s["arch"]), n_layers=s["n_layers"])
+    bounds = tf.stage_bounds(cfg, s["stages"])
+    per_stage = bounds[0][1] - bounds[0][0]
+    if any(hi - lo != per_stage for lo, hi in bounds):
+        raise AssertionError(f"swarm: uneven stages {bounds}")
+    model = get_model(cfg, "cuda")
+    params = model.init(s["seed"])
+    args = serve_mod.build_parser().parse_args(
+        ["--requests", str(s["requests"]), "--prompt-len",
+         str(s["prompt_len"]), "--max-new", str(s["max_new"]),
+         "--seed", str(s["seed"])])
+    reqs = serve_mod.make_requests(args, cfg.vocab)
+    prompts = [r.prompt.tolist() for r in reqs]
+    ref_tokens, ref_logits = swarm_reference(model, params, cfg, reqs)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_swarm_"))
+    runs, open_ = {}, []            # what is still running, closed last
+    try:
+        for layout, kernel in (("dense", "flash_decode"),
+                               ("paged", "flash_decode_paged")):
+            for crashed in (False, True):
+                fleet = SwarmFleet(cfg, params, root / f"{layout}{crashed}",
+                                   layout)
+                open_.append(fleet)
+                victim = None
+                if crashed:
+                    first = fleet.router._pick(1)
+                    victim = next(v for v in fleet.servers.values()
+                                  if v.addr == first)
+                label = (f"run {2 + (layout == 'paged') + 2 * crashed}, "
+                         f"{layout}{', stage-1 crash' if crashed else ''}")
+                runs[(layout, crashed)] = swarm_run(
+                    label, fleet, prompts, ref_tokens, ref_logits,
+                    kernel=kernel, per_stage=per_stage, crash=victim)
+                open_.pop().close()
+        # run 6: adoption through the chunk swarm
+        seed_store = ChunkStore(root / "seed")
+        t0 = time.perf_counter()
+        publish_stages(seed_store, cfg, params, s["stages"], stage_ids=[1])
+        publish_s = time.perf_counter() - t0
+        seed = ChunkPeer(seed_store)
+        open_.append(seed)
+        adopter = StageServer(cfg, ChunkStore(root / "adopter"),
+                              k_stages=s["stages"], max_len=s["max_len"])
+        open_.append(adopter)
+        t0 = time.perf_counter()
+        fetched = adopter.adopt_stage(1, [seed.addr], timeout=120.0)
+        torch.cuda.synchronize()
+        adopt_s = time.perf_counter() - t0
+        open_.append(SwarmFleet(cfg, params, root / "adopt", "dense",
+                                extra=[adopter],
+                                dead=[(1, r) for r in range(s["replicas"])]))
+        fleet = open_[-1]
+        if fleet.router.holders(1) != [adopter.addr]:
+            raise AssertionError(f"swarm adopt: stage 1 holders "
+                                 f"{fleet.router.holders(1)}")
+        runs["adopt"] = swarm_run("run 6, stage 1 adopted", fleet, prompts,
+                                  ref_tokens, ref_logits,
+                                  kernel="flash_decode", per_stage=per_stage)
+        served = adopter.served_chunks
+        want = s["requests"] + runs["adopt"]["stats"]["decode_steps"]
+        if served != want:
+            raise AssertionError(f"swarm adopt: the adopter served {served} "
+                                 f"stage responses, want {want}")
+        log(f"swarm adopt: stage 1 ({per_stage} layers) published in "
+            f"{publish_s:.2f}s, adopted by swarm fetch in {adopt_s:.2f}s "
+            f"({fetched['chunks_fetched']} chunks), then served all "
+            f"{served} stage-1 responses")
+    finally:
+        for obj in reversed(open_):
+            obj.close()
+        shutil.rmtree(root, ignore_errors=True)
+    recovery = recovery_kv_delta(cfg, params, prompts[0], ref_tokens[0], 2)
+    compute = stage_compute_ms(cfg, params)
+    wire = {sid: runs[("dense", False)]["rpc_ms"][f"decode{sid}"] - ms
+            for sid, ms in compute.items()}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"swarm stage compute ms a decode_stage (B=1, host clock to the "
+        f"output on the host) {json.dumps({k: round(v, 3) for k, v in compute.items()})}"
+        f", wire ms (healthy dense run's mean rpc - compute) "
+        f"{json.dumps({k: round(v, 3) for k, v in wire.items()})}")
+    b1 = b1_flash_decode()
+    wall = time.perf_counter() - t_phase
+    log(f"swarm phase: {s['arch']} depth {s['n_layers']} "
+        f"params={cfg.param_count()} (norms apart) "
+        f"stages={s['stages']}x{s['replicas']} peak_mem={peak / 2**30:.2f}GiB "
+        f"in {wall:.1f}s")
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"runs": runs, "recovery": recovery, "compute_ms": compute,
+            "wire_ms": wire, "peak_bytes": peak, "b1": b1,
+            "adopt_s": adopt_s, "publish_s": publish_s,
+            "adopt_chunks": fetched["chunks_fetched"], "wall_s": wall}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dist-slots", type=int, default=None,
                     help="run only phase 9 (after the build) with this "
                          "many DiLoCo slots, and print no result: how "
                          "its slot count was sized")
+    ap.add_argument("--swarm-only", action="store_true",
+                    help="run only phase 10, swarm serving (after the "
+                         "build), and print no result")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False     # fp32 stays fp32
@@ -2206,6 +2696,10 @@ def main(argv=None) -> None:
         train_distributed()
         log(f"phase 9 alone at {args.dist_slots} slots passed in "
             f"{time.perf_counter() - t0:.1f}s")
+        return
+    if args.swarm_only:
+        swarm_serve_phase()
+        log(f"phase 10 alone passed in {time.perf_counter() - t0:.1f}s")
         return
     kernels = ([check_flash_decode()] + check_int8_codec()
                + [check_flash_decode_paged()])
@@ -2274,6 +2768,15 @@ def main(argv=None) -> None:
         entry["launches_dist"] = dist["launches"][entry["name"]]
     gc.collect()
     torch.cuda.empty_cache()
+    swarm = swarm_serve_phase()
+    for entry, layout in ((kernels[0], "dense"), (kernels[5], "paged")):
+        entry["launches_swarm"] = {
+            "healthy": swarm["runs"][(layout, False)]["launches"],
+            "crash": swarm["runs"][(layout, True)]["launches"]}
+        if layout == "dense":
+            entry["launches_swarm"]["adopt"] = swarm["runs"]["adopt"][
+                "launches"]
+        entry["swarm_b1"] = swarm["b1"][entry["name"]]
     log(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

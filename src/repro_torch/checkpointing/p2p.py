@@ -164,6 +164,10 @@ class PeerConn:
         with self._timeouts_typed():
             self.sock = socket.create_connection(addr, timeout=timeout)
         self.sock.settimeout(timeout)
+        # a request is often two frames (a stage RPC's header and
+        # tensor): without this, Nagle holds the second until the first
+        # is acknowledged, a delayed ACK of up to 40 ms on loopback
+        self.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
 
     @contextlib.contextmanager
     def _timeouts_typed(self):

@@ -156,6 +156,8 @@ class ChunkPeer:
         pins: list[dict] = []
         try:
             conn.settimeout(10.0)
+            # responses are often two frames (see ``PeerConn``)
+            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             while not self._stop.is_set():
                 req = json.loads(_recv_frame(conn))
                 if not self._handle_op(conn, req, pins):

@@ -12,13 +12,112 @@ variant with ``--engine paged --block-size 16 --pool-blocks N``);
 ``--device cpu`` runs the same path with the kernel's plain PyTorch
 version. ``--attn-impl`` is accepted for command-line parity with
 ``repro.launch.serve`` and sets ``decode_attn_impl`` on the config; the
-port picks the kernel from the device. ``--swarm`` is not ported yet
-and raises.
+port picks the kernel from the device.
+
+``--swarm`` runs fault-tolerant swarm inference instead: it brings up an
+in-process fleet of ``--stages x --replicas`` StageServers over loopback
+(serving views of one weight set; the stage weights are also published
+into a seed chunk store, from which a joiner could adopt them), routes
+the same requests through a ``SwarmRouter``, crashes one mid-chain
+holder a few responses into the run, and checks that the emitted tokens
+equal the single-host engine's, exiting non-zero if they do not:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
+      --reduced --swarm --stages 2 --replicas 2 --requests 4
+
+The single-host reference is ``ContinuousEngine(batch_slots=1,
+batch_admit=False)``: a chain runs every request at B = 1, and on the
+card a matmul row's bits may depend on how many rows share the call.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+
+
+def _run_swarm(args, cfg, model, params) -> dict:
+    import tempfile
+    import time
+    from pathlib import Path
+
+    from repro_torch.checkpointing import (ChunkGossip, ChunkPeer,
+                                           ChunkStore, PeerConnPool)
+    from repro_torch.models import registry
+    from repro_torch.serving import StageServer, SwarmRouter, publish_stages
+    from repro_torch.serving.engine import ContinuousEngine
+
+    reqs = make_requests(args, cfg.vocab)
+    prompts = [r.prompt.tolist() for r in reqs]
+    engine = ContinuousEngine(model, params, batch_slots=1,
+                              batch_admit=False, max_len=args.max_len,
+                              bucket_prompts=not args.no_bucket)
+    for r in reqs:
+        engine.submit(r)
+    engine.run_until_drained()
+    reference = [list(r.out_tokens) for r in reqs]
+
+    stages = registry.make_stages(cfg, args.stages, args.device)
+    servers, pool, gossip, seed_peer = {}, None, None, None
+    with tempfile.TemporaryDirectory() as td:
+        root = Path(td)
+        seed_store = ChunkStore(root / "seed")
+        publish_stages(seed_store, cfg, params, args.stages)
+        try:
+            seed_peer = ChunkPeer(seed_store)
+            for sid in range(args.stages):
+                sp = stages[sid].slice_params(params)
+                for r in range(args.replicas):
+                    srv = StageServer(
+                        cfg, ChunkStore(root / f"srv_{sid}_{r}"),
+                        k_stages=args.stages, max_len=args.max_len,
+                        device=args.device)
+                    srv.serve_stage(sid, sp)
+                    servers[(sid, r)] = srv
+            pool = PeerConnPool(timeout=args.timeout)
+            gossip = ChunkGossip([s.addr for s in servers.values()],
+                                 timeout=args.timeout, pool=pool)
+            gossip.poll_once()
+            router = SwarmRouter(args.stages, gossip, timeout=args.timeout,
+                                 pool=pool, max_len=args.max_len,
+                                 bucket_prompts=not args.no_bucket)
+            if args.replicas > 1 and args.requests > 1:
+                # crash the mid-chain holder the router plans first a few
+                # responses into the run: it must fail over and re-prefill
+                first = router._pick(args.stages // 2)
+                victim = next(s for s in servers.values()
+                              if s.addr == first)
+                victim.crash_after = victim.served_chunks + 3
+            t0 = time.perf_counter()
+            outs = [router.generate(p, args.max_new, rid=f"req{i}",
+                                    eos_id=engine.eos_id)
+                    for i, p in enumerate(prompts)]
+            wall = time.perf_counter() - t0
+            st = dict(router.stats)
+            ntok = sum(len(o) for o in outs)
+            identical = outs == reference
+            print(f"swarm stages={args.stages} replicas={args.replicas} "
+                  f"requests={len(outs)} tokens={ntok} "
+                  f"tok/s={ntok / max(wall, 1e-9):.1f}")
+            print(f"failovers={st['failovers']} "
+                  f"recoveries={st['recoveries']} "
+                  f"replayed_tokens={st['replayed_tokens']} "
+                  f"recovery_s={st['recovery_s']:.3f} "
+                  f"pool_reused={pool.stats['reused']}")
+            print(f"bit_identical_to_engine={identical}")
+            if not identical:
+                raise SystemExit("swarm outputs diverged from engine")
+        finally:
+            if gossip is not None:
+                gossip.stop()
+            if pool is not None:
+                pool.close()
+            for s in servers.values():
+                s.close()
+            if seed_peer is not None:
+                seed_peer.close()
+    return dict(st, engine="swarm", outputs=outs, reference=reference,
+                tokens_out=ntok, wall_s=wall,
+                bit_identical_to_engine=identical)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -48,7 +147,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="disable power-of-two prompt pad bucketing")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--swarm", action="store_true",
-                    help="fault-tolerant swarm inference (not ported yet)")
+                    help="fault-tolerant swarm-inference demo")
     ap.add_argument("--stages", type=int, default=2)
     ap.add_argument("--replicas", type=int, default=2)
     ap.add_argument("--timeout", type=float, default=5.0)
@@ -92,10 +191,6 @@ def main(argv=None) -> dict:
     if args.engine == "wave" and args.temperature > 0:
         ap.error("--engine wave is greedy-only; use --engine "
                  "continuous for --temperature > 0")
-    if args.swarm:
-        raise NotImplementedError("--swarm is not ported yet (swarm "
-                                  "serving is a later slice)")
-
     import torch
 
     from repro_torch.configs import get_config
@@ -112,6 +207,8 @@ def main(argv=None) -> dict:
         cfg = dataclasses.replace(cfg, decode_attn_impl=args.attn_impl)
     model = get_model(cfg, args.device)
     params = model.init(args.seed)
+    if args.swarm:
+        return _run_swarm(args, cfg, model, params)
     engine = make_engine(args.engine, model, params, **engine_kwargs(args))
     reqs = make_requests(args, cfg.vocab)
     for r in reqs:

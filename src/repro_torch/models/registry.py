@@ -10,7 +10,9 @@ interface over the model zoo. The port has the dense family so far:
     chunked-prefill segment (batch keys ``tokens``, ``start``,
     ``seg_len``); None for sliding-window models
 
-Every ``ModelDef`` is bound to one device; caches are written in place.
+and the pipeline-stage partition of swarm serving (``make_stages``,
+``stage_param_specs``). Every ``ModelDef`` and ``StageDef`` is bound to
+one device; caches are written in place.
 """
 from __future__ import annotations
 
@@ -43,7 +45,8 @@ def _lm_def(cfg: ArchConfig, device: torch.device) -> ModelDef:
     def loss(params, batch):
         return transformer.loss_fn(cfg, params, batch)
 
-    def init_cache(batch_size, shape: ShapeConfig):
+    def init_cache(batch_size, shape: ShapeConfig, device=device):
+        # device="meta": the abstract cache (paging sizes its pool from it)
         return transformer.init_cache(cfg, batch_size, shape.seq_len,
                                       device=device)
 
@@ -64,11 +67,100 @@ def _lm_def(cfg: ArchConfig, device: torch.device) -> ModelDef:
                                     else prefill_extend))
 
 
+def _check_ported(cfg: ArchConfig) -> None:
+    if cfg.family != "dense" or cfg.moe is not None:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
+            "port has the dense family only; MoE, VLM, SSM, hybrid and "
+            "enc-dec come in a later slice")
+
+
 def get_model(cfg: ArchConfig, device="cuda") -> ModelDef:
+    _check_ported(cfg)
+    return _lm_def(cfg, torch.device(device))
+
+
+# -- pipeline-stage partition (swarm serving) ---------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class StageDef:
+    """One contiguous-layer pipeline stage of a decoder-only LM.
+
+    A stage owns layers ``[lo, hi)`` of the stack; the first stage also
+    owns the embedding, the last the final norm and LM head.
+    ``slice_params`` takes the stage's parameter subtree (views) from
+    the full tree; ``init_cache(batch_size, max_len)`` allocates the
+    stage-local KV cache on the device ``make_stages`` was given (or
+    ``device=``);
+    ``prefill`` / ``decode`` run the stage forward (tokens in / logits
+    out at the chain's ends, (B, S, D) activations in between).
+    Composing every stage in order is bitwise the monolithic
+    ``ModelDef.prefill`` / ``decode``: both are the same
+    ``stage_prefill`` / ``stage_decode``."""
+    cfg: ArchConfig
+    index: int
+    n_stages: int
+    lo: int
+    hi: int
+    slice_params: Callable[[Any], Any]
+    init_cache: Callable[..., Any]
+    prefill: Callable[..., tuple[torch.Tensor, Any]]
+    decode: Callable[..., tuple[torch.Tensor, Any]]
+
+    @property
+    def first(self) -> bool:
+        return self.index == 0
+
+    @property
+    def last(self) -> bool:
+        return self.index == self.n_stages - 1
+
+
+def make_stages(cfg: ArchConfig, k_stages: int,
+                device="cuda") -> list[StageDef]:
+    """Partition a decoder-only model into ``k_stages`` pipeline stages.
+    Only the transformer families (dense / moe / vlm) have the stage
+    seam: the others raise ``ValueError``, as in the JAX package; moe
+    and vlm raise ``NotImplementedError`` until they are ported."""
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise ValueError(
+            f"stage partition unsupported for family {cfg.family!r} "
+            "(only dense/moe/vlm)")
+    _check_ported(cfg)
     device = torch.device(device)
-    if cfg.family == "dense" and cfg.moe is None:
-        return _lm_def(cfg, device)
-    raise NotImplementedError(
-        f"family {cfg.family!r} ({cfg.name}) is not ported yet: the port "
-        "has the dense family only; MoE, VLM, SSM, hybrid and enc-dec "
-        "come in a later slice")
+    stages = []
+    for i, (lo, hi) in enumerate(transformer.stage_bounds(cfg, k_stages)):
+        first, last = i == 0, i == k_stages - 1
+
+        def slice_params(params, lo=lo, hi=hi, first=first, last=last):
+            return transformer.slice_stage_params(
+                cfg, params, lo, hi, first=first, last=last)
+
+        def init_cache(batch_size, max_len, lo=lo, hi=hi, device=device):
+            # device="meta": the abstract cache (a paged pool's template)
+            return transformer.init_stage_cache(cfg, batch_size, max_len,
+                                                lo, hi, device=device)
+
+        def prefill(params, inp, cache, prompt_len=None, first=first,
+                    last=last):
+            return transformer.stage_prefill(
+                cfg, params, inp, cache, first=first, last=last,
+                prompt_len=prompt_len)
+
+        def decode(params, inp, cache, first=first, last=last):
+            return transformer.stage_decode(
+                cfg, params, inp, cache, first=first, last=last)
+
+        stages.append(StageDef(cfg, i, k_stages, lo, hi, slice_params,
+                               init_cache, prefill, decode))
+    return stages
+
+
+def stage_param_specs(cfg: ArchConfig, k_stages: int) -> list:
+    """The abstract parameter tree of each stage (``meta``-device
+    tensors: shapes and dtypes, no storage), the ``like`` for restoring
+    published stage weights without materializing the full model."""
+    specs = transformer.alloc_lm(cfg, device="meta")
+    return [s.slice_params(specs)
+            for s in make_stages(cfg, k_stages, device="meta")]

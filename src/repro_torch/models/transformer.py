@@ -6,8 +6,9 @@ FFN, optional sliding-window attention, the training forward and loss
 
 Layers stay stacked (leading ``L`` dim) in the JAX package's layout and
 the layer stack is a Python loop over that dim; KV caches are written in
-place. The stage partition of the JAX package (swarm serving) is not
-ported yet: ``prefill`` / ``decode_step`` are its one-stage case.
+place. Serving is split at the JAX package's stage-partition seam (see
+the serving section): ``prefill`` / ``decode_step`` are the one-stage
+case of ``stage_prefill`` / ``stage_decode``.
 """
 from __future__ import annotations
 
@@ -29,10 +30,11 @@ def _check_dense(cfg) -> None:
             "slice)")
 
 
-def init_lm(cfg, generator: torch.Generator, *, device="cuda") -> dict:
-    """Random parameters with ``repro``'s scales and layout. Each layer
-    is drawn in fp32 on ``device`` and cast into its slice of the
-    stacked tensors, so the fp32 temporaries stay one layer's size."""
+def alloc_lm(cfg, *, device="cuda") -> dict:
+    """The parameter tree of ``init_lm`` (``repro``'s layout, the
+    config's dtype), unfilled but for the norm gains (ones). On the
+    ``meta`` device it is the abstract tree: shapes and dtypes with no
+    storage."""
     _check_dense(cfg)
     d, hd, n = cfg.d_model, _head_dim(cfg), cfg.n_layers
     hq, hk, ff = cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.d_ff
@@ -40,28 +42,39 @@ def init_lm(cfg, generator: torch.Generator, *, device="cuda") -> dict:
     def empty(*shape):
         return torch.empty(shape, dtype=cfg.torch_dtype, device=device)
 
-    params = {"embed": common.normal_(empty(cfg.padded_vocab, d), generator,
-                                      scale=0.02),
-              "ln_f": torch.ones(d, dtype=cfg.torch_dtype, device=device)}
+    def ones(*shape):
+        return torch.ones(shape, dtype=cfg.torch_dtype, device=device)
+
+    params = {"embed": empty(cfg.padded_vocab, d), "ln_f": ones(d)}
     if not cfg.tie_embeddings:
-        params["lm_head"] = common.normal_(empty(d, cfg.padded_vocab),
-                                           generator)
-    layers = {"ln_attn": torch.ones(n, d, dtype=cfg.torch_dtype,
-                                    device=device),
-              "wq": empty(n, d, hq), "wk": empty(n, d, hk),
-              "wv": empty(n, d, hk), "wo": empty(n, hq, d),
-              "ln_mlp": torch.ones(n, d, dtype=cfg.torch_dtype,
-                                   device=device),
-              "mlp": {"gate": empty(n, d, ff), "up": empty(n, d, ff),
-                      "down": empty(n, ff, d)}}
-    for i in range(n):
+        params["lm_head"] = empty(d, cfg.padded_vocab)
+    params["layers"] = {"ln_attn": ones(n, d), "wq": empty(n, d, hq),
+                        "wk": empty(n, d, hk), "wv": empty(n, d, hk),
+                        "wo": empty(n, hq, d), "ln_mlp": ones(n, d),
+                        "mlp": {"gate": empty(n, d, ff),
+                                "up": empty(n, d, ff),
+                                "down": empty(n, ff, d)}}
+    return params
+
+
+def init_lm(cfg, generator: torch.Generator, *, device="cuda") -> dict:
+    """Random parameters with ``repro``'s scales and layout. Each layer
+    is drawn in fp32 on ``device`` and cast into its slice of the
+    stacked tensors, so the fp32 temporaries stay one layer's size."""
+    params = alloc_lm(cfg, device=device)
+    hq = cfg.n_heads * _head_dim(cfg)
+    common.normal_(params["embed"], generator, scale=0.02)
+    if not cfg.tie_embeddings:
+        common.normal_(params["lm_head"], generator)
+    layers = params["layers"]
+    for i in range(cfg.n_layers):
         for name in ("wq", "wk", "wv"):
             common.normal_(layers[name][i], generator)
         common.normal_(layers["wo"][i], generator, scale=hq ** -0.5)
         common.normal_(layers["mlp"]["gate"][i], generator)
         common.normal_(layers["mlp"]["up"][i], generator)
-        common.normal_(layers["mlp"]["down"][i], generator, scale=ff ** -0.5)
-    params["layers"] = layers
+        common.normal_(layers["mlp"]["down"][i], generator,
+                       scale=cfg.d_ff ** -0.5)
     return params
 
 
@@ -148,6 +161,71 @@ def loss_fn(cfg, params, batch):
 
 
 # -- serving ------------------------------------------------------------------
+#
+# The serving forward is organized around the JAX package's STAGE-PARTITION
+# seam: the stacked layer block splits into K contiguous-layer stages, each
+# with its own parameter views and KV cache, so a model can be served by a
+# chain of machines (``serving/swarm_serve.py``). ``prefill`` /
+# ``decode_step`` are thin wrappers over ``stage_prefill`` /
+# ``stage_decode`` with ``first=last=True``, so staged and monolithic
+# serving share every op (bit-identical by construction).
+
+
+def n_scan_layers(cfg) -> int:
+    return cfg.n_layers - (cfg.moe.first_dense if cfg.moe else 0)
+
+
+def stage_bounds(cfg, k_stages: int) -> list[tuple[int, int]]:
+    """Contiguous partition of the stacked layers into ``k_stages``
+    near-equal [lo, hi) ranges (remainder spread over the leading
+    stages)."""
+    n = n_scan_layers(cfg)
+    if not 1 <= k_stages <= n:
+        raise ValueError(f"k_stages {k_stages} not in [1, {n}]")
+    base, rem = divmod(n, k_stages)
+    bounds, lo = [], 0
+    for i in range(k_stages):
+        hi = lo + base + (1 if i < rem else 0)
+        bounds.append((lo, hi))
+        lo = hi
+    return bounds
+
+
+def _slice_rows(tree, lo: int, hi: int):
+    """Rows [lo, hi) of every stacked tensor of ``tree``: views, never
+    copies (on the ``meta`` device, the abstract slice)."""
+    if isinstance(tree, dict):
+        return {k: _slice_rows(v, lo, hi) for k, v in tree.items()}
+    return tree[lo:hi]
+
+
+def slice_stage_params(cfg, params, lo: int, hi: int, *, first: bool,
+                       last: bool) -> dict:
+    """The parameter subtree one stage needs: views of its layer-stack
+    rows, plus the embedding on the first stage and the final norm and
+    head on the last (tied embeddings put the embedding on the last
+    stage too)."""
+    sp = {"layers": _slice_rows(params["layers"], lo, hi)}
+    if first:
+        sp["embed"] = params["embed"]
+    if last:
+        sp["ln_f"] = params["ln_f"]
+        if cfg.tie_embeddings:
+            sp["embed"] = params["embed"]
+        else:
+            sp["lm_head"] = params["lm_head"]
+    return sp
+
+
+def _init_cache_range(cfg, batch_size: int, max_len: int, lo: int, hi: int,
+                      *, device) -> dict:
+    _check_dense(cfg)
+    s_max = min(max_len, cfg.sliding_window) if cfg.sliding_window \
+        else max_len
+    return {"scan": attn.KVCache.init(hi - lo, batch_size, s_max,
+                                      cfg.n_kv_heads, _head_dim(cfg),
+                                      dtype=cfg.torch_dtype, device=device),
+            "prefix": []}
 
 
 def init_cache(cfg, batch_size: int, max_len: int, *, device="cuda") -> dict:
@@ -155,13 +233,15 @@ def init_cache(cfg, batch_size: int, max_len: int, *, device="cuda") -> dict:
     "prefix": []}`` (the JAX package's layout; dense models have no
     unstacked prefix layers). SWA models hold a ring of
     min(max_len, window) cells."""
-    _check_dense(cfg)
-    s_max = min(max_len, cfg.sliding_window) if cfg.sliding_window \
-        else max_len
-    return {"scan": attn.KVCache.init(cfg.n_layers, batch_size, s_max,
-                                      cfg.n_kv_heads, _head_dim(cfg),
-                                      dtype=cfg.torch_dtype, device=device),
-            "prefix": []}
+    return _init_cache_range(cfg, batch_size, max_len, 0, n_scan_layers(cfg),
+                             device=device)
+
+
+def init_stage_cache(cfg, batch_size: int, max_len: int, lo: int, hi: int,
+                     *, device="cuda") -> dict:
+    """Per-stage cache: the KV stack of layers [lo, hi) (the dense
+    family has no unstacked prefix layers to ride with stage 0)."""
+    return _init_cache_range(cfg, batch_size, max_len, lo, hi, device=device)
 
 
 def _head_logits(cfg, params, x):
@@ -199,30 +279,68 @@ def _prefill_write(cfg, c: attn.KVCache, k, v, prompt_len) -> None:
 
 
 @torch.no_grad()
-def prefill(cfg, params, tokens, cache, *, prompt_len=None):
-    """Run the (right-padded) prompt, fill ``cache`` in place ->
-    (last-token logits (B, V), cache).
+def stage_prefill(cfg, params, inp, cache, *, first: bool, last: bool,
+                  prompt_len=None):
+    """Prefill one stage's layers over the full (right-padded) prompt,
+    filling its (fresh: every length 0) ``cache`` in place.
 
-    ``cache`` must be fresh (every length 0). ``prompt_len``: optional
-    (B,) int32 true prompt lengths; logits are gathered at each slot's
-    ``prompt_len - 1`` and cache lengths set per slot, which is what lets
-    admission pad prompts to power-of-two buckets without changing
-    outputs."""
+    ``inp``: (B, S) tokens when ``first`` else (B, S, D) activations from
+    the previous stage. Returns ``(out, cache)``: the (B, V) last-token
+    logits when ``last`` (gathered at each slot's ``prompt_len - 1``),
+    else the full-width (B, S, D) activations for the next stage.
+
+    ``prompt_len``: optional (B,) int32 true prompt lengths; cache
+    lengths are then set per slot, which is what lets admission pad
+    prompts to power-of-two buckets without changing outputs."""
     _check_dense(cfg)
-    x = common.embedding_lookup(params["embed"], tokens)
+    x = common.embedding_lookup(params["embed"], inp) if first else inp
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     scan = cache["scan"]
-    for i in range(cfg.n_layers):
+    for i in range(scan.k.shape[0]):
         x, (k, v) = _layer(cfg, layer_params(params, i), x,
                            positions=positions)
         _prefill_write(cfg, scan.layer(i), k, v, prompt_len)
+    if not last:
+        return x, cache
     if prompt_len is None:
         x_last = x[:, -1:]
     else:
         idx = (prompt_len.long() - 1)[:, None, None].expand(b, 1, x.shape[-1])
         x_last = torch.gather(x, 1, idx)
     return _head_logits(cfg, params, x_last), cache
+
+
+@torch.no_grad()
+def stage_decode(cfg, params, inp, cache, *, first: bool, last: bool):
+    """One decode step through one stage's layers, the cache advanced in
+    place.
+
+    ``inp``: (B, 1) token ids when ``first`` else (B, 1, D) activations.
+    Returns ``(out, cache)``: (B, V) logits when ``last`` else (B, 1, D)
+    activations. RoPE positions come from the per-slot cache lengths,
+    so slots at different depths each get their own phase, and every
+    stage derives them from its own cache (a chain's stages advance in
+    lockstep)."""
+    _check_dense(cfg)
+    x = common.embedding_lookup(params["embed"], inp) if first else inp
+    scan = cache["scan"]
+    positions = scan.length[0][:, None].clone()      # (B, 1)
+    rolling = cfg.sliding_window is not None
+    for i in range(scan.k.shape[0]):
+        x, _ = _layer(cfg, layer_params(params, i), x, positions=positions,
+                      layer_cache=scan.layer(i), rolling=rolling)
+    if not last:
+        return x, cache
+    return _head_logits(cfg, params, x), cache
+
+
+def prefill(cfg, params, tokens, cache, *, prompt_len=None):
+    """Run the (right-padded) prompt, fill ``cache`` in place ->
+    (last-token logits (B, V), cache). The one-stage case of
+    ``stage_prefill``."""
+    return stage_prefill(cfg, params, tokens, cache, first=True, last=True,
+                         prompt_len=prompt_len)
 
 
 @torch.no_grad()
@@ -267,17 +385,7 @@ def prefill_extend(cfg, params, tokens, cache, *, start: int, seg_len: int):
     return _head_logits(cfg, params, x[:, seg_len - 1:seg_len]), cache
 
 
-@torch.no_grad()
 def decode_step(cfg, params, token, cache):
     """One decode step. token: (B, 1) -> (logits (B, V), cache), the
-    cache advanced in place. RoPE positions come from the per-slot cache
-    lengths, so slots at different depths each get their own phase."""
-    _check_dense(cfg)
-    x = common.embedding_lookup(params["embed"], token)
-    scan = cache["scan"]
-    positions = scan.length[0][:, None].clone()      # (B, 1)
-    rolling = cfg.sliding_window is not None
-    for i in range(cfg.n_layers):
-        x, _ = _layer(cfg, layer_params(params, i), x, positions=positions,
-                      layer_cache=scan.layer(i), rolling=rolling)
-    return _head_logits(cfg, params, x), cache
+    cache advanced in place. The one-stage case of ``stage_decode``."""
+    return stage_decode(cfg, params, token, cache, first=True, last=True)

@@ -228,36 +228,75 @@ def build_paged_cache(model, slots: int, shape, *, block_size: int,
                       capacity_blocks: int | None = None,
                       rolling: bool = False):
     """The paged counterpart of ``model.init_cache(slots, shape)``:
-    ``{"scan": PagedKVCache, "prefix": []}`` with pool k/v (L, n_blocks,
-    block_size, Hk, dh) in the model's dtype, one (slots, nb) table of
-    -1 and (L, slots) lengths, sized from ``model.cfg`` and ``shape``
-    (the dense cache is never allocated).
+    every ``KVCache`` of the model's cache tree replaced by a
+    ``PagedKVCache`` over a shared physical pool, on the model's device
+    (the template is the ``meta``-device cache, so the dense cache is
+    never allocated). Returns (cache, nb, n_blocks); see
+    ``paged_cache_from_template``."""
+    template = model.init_cache(slots, shape, device="meta")
+    return paged_cache_from_template(
+        template, slots=slots, block_size=block_size, n_blocks=n_blocks,
+        capacity_blocks=capacity_blocks, rolling=rolling,
+        device=model.device)
 
-    nb = the dense cache width (``max_len``, or the SWA ring) over
+
+def paged_cache_from_template(template, *, slots: int, block_size: int,
+                              n_blocks: int | None = None,
+                              capacity_blocks: int | None = None,
+                              rolling: bool = False, device="cuda"):
+    """Core of :func:`build_paged_cache` over a cache template (a
+    ``{"scan": KVCache, "prefix": [...]}`` tree, best on the ``meta``
+    device); the swarm stage servers build theirs from
+    ``StageDef.init_cache``. A stacked (L, B, S, Hk, dh) leaf becomes a
+    pool k/v (L, n_blocks, block_size, Hk, dh) in the leaf's dtype, one
+    (slots, nb) table of -1 that every layer shares and (L, slots)
+    lengths; an unstacked leaf the same without L.
+
+    nb = the cache width (``max_len``, or the SWA ring) over
     ``block_size``, widened to ``capacity_blocks`` for full-causal
     models. Returns (cache, nb, n_blocks); ``n_blocks=None`` sizes the
-    pool to the dense engine's capacity (slots * nb blocks + trash)."""
-    cfg = model.cfg
-    s_max = shape.seq_len
-    if cfg.sliding_window:
-        s_max = min(s_max, cfg.sliding_window)
-    if s_max % block_size:
-        raise ValueError(f"block_size {block_size} must divide the cache "
-                         f"width {s_max} (max_len / SWA ring)")
-    nb = s_max // block_size
-    if capacity_blocks is not None and not rolling:
-        nb = max(nb, capacity_blocks)
+    pool to the dense capacity (slots * nb blocks + trash)."""
+    def kv_leaves(node):
+        if isinstance(node, attn.KVCache):
+            yield node
+        elif isinstance(node, dict):
+            for v in node.values():
+                yield from kv_leaves(v)
+        elif isinstance(node, list):
+            for v in node:
+                yield from kv_leaves(v)
+
+    widths = set()
+    for leaf in kv_leaves(template):
+        s_max = leaf.k.shape[-3]
+        if s_max % block_size:
+            raise ValueError(f"block_size {block_size} must divide the "
+                             f"cache width {s_max} (max_len / SWA ring)")
+        nb = s_max // block_size
+        if capacity_blocks is not None and not rolling:
+            nb = max(nb, capacity_blocks)
+        widths.add(nb)
+    if len(widths) > 1:
+        raise ValueError(f"non-uniform paged table widths {widths}")
+    nb = widths.pop() if widths else 0
     if n_blocks is None:
-        n_blocks = slots * nb + 1
-    hd = cfg.head_dim or cfg.d_model // cfg.n_heads
-    dev = model.device
-    pool = torch.zeros((cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads,
-                        hd), dtype=cfg.torch_dtype, device=dev)
-    cache = attn.PagedKVCache(
-        pool, torch.zeros_like(pool),
-        torch.full((slots, nb), -1, dtype=torch.int32, device=dev),
-        torch.zeros((cfg.n_layers, slots), dtype=torch.int32, device=dev))
-    return {"scan": cache, "prefix": []}, nb, n_blocks
+        n_blocks = slots * nb + 1 if nb else 2
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [conv(v) for v in node]
+        lead = tuple(node.k.shape[:-4])          # (L,) when stacked
+        hk, dh = node.k.shape[-2:]
+        pool = torch.zeros(lead + (n_blocks, block_size, hk, dh),
+                           dtype=node.k.dtype, device=device)
+        return attn.PagedKVCache(
+            pool, torch.zeros_like(pool),
+            torch.full((slots, nb), -1, dtype=torch.int32, device=device),
+            torch.zeros(lead + (slots,), dtype=torch.int32, device=device))
+
+    return conv(template), nb, n_blocks
 
 
 class PagedEngine(ContinuousEngine):

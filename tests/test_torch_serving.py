@@ -153,7 +153,8 @@ def test_port_imports_neither_jax_nor_repro(tmp_path):
             "repro_torch.checkpointing.delta, repro_torch.checkpointing.p2p, "
             "repro_torch.checkpointing.gossip, "
             "repro_torch.checkpointing.swarm, "
-            "repro_torch.checkpointing.streaming\n"
+            "repro_torch.checkpointing.streaming, repro_torch.serving, "
+            "repro_torch.serving.swarm_serve\n"
             + bad + "assert not bad, bad\n\n"
             "def rank_modules(ctx):\n"
             "    " + bad.replace("\n", "\n    ") + "return bad\n\n"
@@ -205,8 +206,24 @@ def test_serve_main_paged_on_cpu(capsys):
     assert "prefix_hit_rate=" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv", [["--swarm"]])
+@pytest.mark.parametrize("argv", [["--arch", "mamba2-130m"],
+                                  ["--swarm", "--arch", "deepseek-moe-16b"]])
 def test_serve_unported_paths_raise(argv):
+    """The families that are not ported yet (SSM, MoE) raise, on the
+    engines and on the swarm path."""
     from repro_torch.launch import serve
     with pytest.raises(NotImplementedError):
         serve.main(["--device", "cpu", "--reduced", *argv])
+
+
+def test_serve_main_swarm_on_cpu(capsys):
+    """``--swarm``: a 2-stage x 2-replica fleet whose mid-chain holder
+    crashes mid-run gives the single-host engine's greedy tokens."""
+    from repro_torch.launch import serve
+    s = serve.main(["--swarm", "--device", "cpu", "--reduced",
+                    "--arch", "internlm2-1.8b", "--stages", "2",
+                    "--replicas", "2", "--requests", "3", "--max-new", "6",
+                    "--max-len", "64"])
+    assert s["bit_identical_to_engine"] and s["outputs"] == s["reference"]
+    assert s["failovers"] >= 1 and s["recoveries"] >= 1
+    assert "bit_identical_to_engine=True" in capsys.readouterr().out
