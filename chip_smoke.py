@@ -104,9 +104,29 @@ Phases, each of which raises on failure (nothing is caught):
    computed ``decode_stage``, the other never; kernels 5 and 6 are held
    against their plain versions at B = 1 and timed there.
 
+11. the MoE and VLM families: kernels 5 and 6 at deepseek-moe-16b's
+   and phi-3-vision-4.2b's attention shapes (16 heads of 128; 32 of 96,
+   where 12 of 16 lanes work) at B = 4, S_max 512, at the VLM decode's
+   own B = 2, S_max 1024, lengths 641 and 656, and at the MoE swarm's
+   B = 1, against their plain versions and timed beside SDPA;
+   ``launch.serve`` serves deepseek-moe-16b at full width and depth (28
+   layers: dense0 + 27 MoE; 16.4 B parameters counted on the meta
+   device) with the
+   continuous and paged engines on phase 5's trace, kernel 5 (6)
+   launching 28 times a decode step, the paged tokens equal to
+   ``ContinuousEngine(batch_admit=False)``'s; its depth-4 swarm (2
+   stages x 2 replicas, dense0 and its cache on stage 0) healthy dense
+   and paged and with a stage-1 crash, tokens and every step's logits
+   bitwise the B = 1 engine's; phi-3-vision-4.2b at full width and
+   depth, a B = 2 prefill behind a 576-patch random frontend and 16
+   greedy steps, each within ``VLM_TOL`` of the full forward (teacher
+   forcing), and 2 stages bitwise the monolithic; the MoE loss at
+   depth 2 on 2 x 512 tokens under autograd, loss, load-balance loss
+   and dropped share finite, every gradient finite.
+
 ``python3 chip_smoke.py --dist-slots N`` builds and runs phase 9 alone
 with N slots (how its slot count was sized), ``--swarm-only`` phase 10
-alone; neither prints a result.
+alone, ``--moe-only`` phase 11 alone; none prints a result.
 
 The last three lines are the kernels (JSON), the card (name, power
 limit) and the result.
@@ -189,6 +209,35 @@ SWARM = {"arch": "intellect-1", "n_layers": 6, "stages": 3, "replicas": 2,
          "max_len": 512, "requests": 8, "prompt_len": 64, "max_new": 32,
          "seed": 0}
 SWARM_B1_LENGTHS = (1, 63, 95, 511)   # kernels 5 and 6 at B = 1
+# phase 11: the MoE and VLM families. deepseek-moe-16b at full width and
+# depth (28 layers: dense0 + 27 MoE; 16.4 B parameters, 32.8 GB bf16)
+# on the serving trace of phase 5; its swarm at depth 4 (dense0 + 3 MoE)
+# in 2 stages x 2 replicas; phi-3-vision-4.2b at full width and depth
+# (32 layers, 32 heads of 96) with a 576-patch frontend; the MoE loss
+# under autograd at depth 2 on 2 x 512 tokens (T > 64: routes dropped)
+MOE_SERVE = ["--arch", "deepseek-moe-16b", "--slots", "4", "--requests",
+             "8", "--prompt-len", "64", "--max-new", "32", "--max-len",
+             "512", "--block-size", "16"]
+MOE_SWARM = {"arch": "deepseek-moe-16b", "n_layers": 4, "stages": 2,
+             "replicas": 2, "max_len": 512, "requests": 8, "prompt_len": 64,
+             "max_new": 32, "seed": 0}
+VLM = {"arch": "phi-3-vision-4.2b", "batch": 2, "prompt_len": 64,
+       "steps": 16, "max_len": 1024, "seed": 0}
+# decode against the full forward (teacher forcing) in bf16 at 32 layers:
+# logits are about unit scale (final RMSNorm, head at fan_in ** -0.5), a
+# (1, D) and an (S, D) product round differently in bf16 (8 significant
+# bits) in every layer, and prefill attention is not the flash-decode
+# kernel, so the gate is a quarter of that scale
+VLM_TOL = 0.25
+MOE_TRAIN = {"arch": "deepseek-moe-16b", "n_layers": 2, "batch": 2,
+             "seq_len": 512, "seed": 0}
+# kernels 5 and 6 at the families' attention shapes: (label, B, S_max,
+# Hk, G, dh, lengths); the last is phase 11's VLM decode itself (its
+# cache of max_len cells, 576 patches + 64 tokens + steps 1 and 16); the
+# MoE swarm's B = 1 stage calls are held by ``b1_flash_decode``
+MOE_FD_CASES = [("deepseek-moe-16b", 4, 512, 16, 1, 128, [512, 1, 300, 77]),
+                ("phi-3-vision-4.2b", 4, 512, 32, 1, 96, [512, 1, 300, 77]),
+                ("phi-3-vision-4.2b decode", 2, 1024, 32, 1, 96, [641, 656])]
 # (B, S_max, Hk, G, dh, lengths): INTELLECT-1's attention at a long cache,
 # where the bytes rather than the latency chain should set the pace
 FD_LONG = (4, 8192, 8, 4, 128, [8192, 4096, 2048, 1])
@@ -2218,26 +2267,28 @@ def dist_hierarchical(n: int) -> dict:
 # -- phase 10: swarm serving --------------------------------------------------
 
 
-def b1_flash_decode() -> dict:
+def b1_flash_decode(label: str = "intellect-1", hk: int = 8, g: int = 4,
+                    dh: int = 128, seed: int = 40) -> dict:
     """Kernels 5 and 6 at the swarm path's shape: B = 1 (one request a
-    stage call) at INTELLECT-1's heads, S_max 512, at lengths
+    stage call) at ``label``'s heads (Hk, G, dh), S_max 512, at lengths
     ``SWARM_B1_LENGTHS``; kernel 6 on a permuted pool of 16-cell blocks
     the size of a stage server's default pool (4 requests' worth + trash),
     bitwise equal to kernel 5 on the gathered view. Each against its plain
-    version within ``TOL``, timed beside SDPA (kernel 6: the gather +
-    SDPA)."""
+    version within ``TOL`` and a repeat bitwise equal, timed beside SDPA
+    (kernel 6: the gather + SDPA)."""
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.models.attention import (PagedKVCache, decode_valid_mask,
                                               paged_view)
-    s_max, hk, g, dh, blk = 512, 8, 4, 128, 16
+    s_max, blk = 512, 16
     out = {"flash_decode": {"ms": [], "bound_ms": [], "library_ms": [],
                             "max_abs_err": 0.0},
            "flash_decode_paged": {"ms": [], "bound_ms": [], "library_ms": [],
                                   "max_abs_err": 0.0}}
     for i, n in enumerate(SWARM_B1_LENGTHS):
         q, k, v, length = flash_decode_inputs(1, s_max, hk, g, dh,
-                                              torch.bfloat16, [n], seed=40 + i)
-        kp, vp, table = paged_pool(k, v, [n], blk, seed=40 + i)
+                                              torch.bfloat16, [n],
+                                              seed=seed + i)
+        kp, vp, table = paged_pool(k, v, [n], blk, seed=seed + i)
         pad = torch.randn((4 * s_max // blk + 1 - kp.shape[0], blk, hk, dh),
                           device="cuda").to(kp.dtype)
         kp, vp = torch.cat([kp, pad]), torch.cat([vp, pad])  # more blocks
@@ -2246,9 +2297,9 @@ def b1_flash_decode() -> dict:
         torch.cuda.synchronize()
         view = paged_view(PagedKVCache(kp, vp, table, length))
         if not torch.equal(paged, fd.flash_decode(q, view.k, view.v, length)):
-            raise AssertionError(f"flash_decode_paged B=1 length {n}: not "
-                                 "bitwise equal to flash_decode on the "
-                                 "gathered view")
+            raise AssertionError(f"flash_decode_paged {label} B=1 length "
+                                 f"{n}: not bitwise equal to flash_decode "
+                                 "on the gathered view")
         valid = decode_valid_mask(length, s_max, None)[:, None, None, :]
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         bound, _ = flash_decode_bound(q, k, length, None)
@@ -2265,10 +2316,8 @@ def b1_flash_decode() -> dict:
                      .k.transpose(1, 2), paged_view(PagedKVCache(
                          kp, vp, table, length)).v.transpose(1, 2),
                      attn_mask=valid, enable_gqa=True), table.numel() * 4)):
-            err = (got.float() - ref.float()).abs().max().item()
-            if not torch.isfinite(got).all() or err > TOL[torch.bfloat16]:
-                raise AssertionError(f"{name} B=1 length {n}: max |err| "
-                                     f"{err} > {TOL[torch.bfloat16]}")
+            err = check_repeat_and_close(f"{name} {label} B=1 length {n}",
+                                         got, run(), ref, torch.bfloat16)
             e = out[name]
             e["max_abs_err"] = max(e["max_abs_err"], err)
             e["ms"].append(time_ms(run))
@@ -2280,7 +2329,8 @@ def b1_flash_decode() -> dict:
         e.update(lengths=list(SWARM_B1_LENGTHS),
                  shape={"B": 1, "S_max": s_max, "Hk": hk, "G": g, "dh": dh,
                         "dtype": "bfloat16"})
-        log(f"kernel {name} B=1 (swarm stage calls) lengths "
+        log(f"kernel {name} {label} Hk={hk} G={g} dh={dh} B=1 (swarm stage "
+            f"calls) lengths "
             f"{SWARM_B1_LENGTHS}: max|err|={e['max_abs_err']:.3g} (tol "
             f"{TOL[torch.bfloat16]}); ms {[round(t, 5) for t in e['ms']]}, "
             f"bound {[round(t, 6) for t in e['bound_ms']]}, "
@@ -2323,12 +2373,12 @@ class SwarmFleet:
     ``TimedRouter`` over them; ``close`` stops every server and thread."""
 
     def __init__(self, cfg, params, root: Path, kv_layout: str,
-                 extra=(), dead=()):
+                 extra=(), dead=(), conf=None):
         from repro_torch.checkpointing import (ChunkGossip, ChunkStore,
                                                PeerConnPool)
         from repro_torch.models import registry
         from repro_torch.serving.swarm_serve import StageServer
-        s = SWARM
+        s = conf or SWARM
         self.servers = {}
         for sid, stage in enumerate(registry.make_stages(cfg, s["stages"])):
             sp = stage.slice_params(params)
@@ -2355,7 +2405,8 @@ class SwarmFleet:
             srv.close()
 
 
-def swarm_reference(model, params, cfg, reqs) -> tuple[list, list]:
+def swarm_reference(model, params, cfg, reqs, conf=None) -> tuple[list,
+                                                                  list]:
     """Run 1: the B = 1 single-host engine (ContinuousEngine, one slot,
     batch-1 admission) on the trace, and the B = 1 monolithic prefill and
     decode along its tokens (the engine's computation), whose logits the
@@ -2364,7 +2415,7 @@ def swarm_reference(model, params, cfg, reqs) -> tuple[list, list]:
 
     from repro_torch.models import transformer as tf
     from repro_torch.serving.engine import ContinuousEngine, bucket_len
-    s = SWARM
+    s = conf or SWARM
     eng = ContinuousEngine(model, params, batch_slots=1, batch_admit=False,
                            max_len=s["max_len"])
     t0 = time.perf_counter()
@@ -2401,25 +2452,26 @@ def swarm_reference(model, params, cfg, reqs) -> tuple[list, list]:
 
 
 def swarm_run(label, fleet, prompts, ref_tokens, ref_logits, *, kernel,
-              per_stage, crash=None) -> dict:
+              stage_layers, crash=None, conf=None) -> dict:
     """Drive ``prompts`` through ``fleet``'s router; the decode kernel
     counts are set to 0 just before and read just after. Gates: tokens
     equal the reference's, and every step's last-stage logits its
     logits bitwise (the recovered steps too: the router replays a failed
     stage's prefix as the uninterrupted run computed it); ``kernel``
-    launched per_stage x the ``decode_stage`` calls the servers answered
-    (k a healthy step; the replay's too), the other decode kernel never;
+    launched ``stage_layers[sid]`` (the layers stage sid runs) times a
+    ``decode_stage`` call a server of stage sid answered (k calls a
+    healthy step; the replay's too), the other decode kernel never;
     paged pools drained. ``crash`` (a server) fails the stage-1 holder
     the router plans first 3 responses in, and then one failover and one
     recovery (the pools of live servers drain; the crashed one's died
     with it, mid-request)."""
-    from repro_torch.serving.swarm_serve import StageServer
-    router, k = fleet.router, SWARM["stages"]
+    conf = conf or SWARM
+    router, k = fleet.router, conf["stages"]
     if crash is not None:
         crash.crash_after = crash.served_chunks + 3
     reset_decode_counts()
     t0 = time.perf_counter()
-    outs = [router.generate(p, SWARM["max_new"], rid=f"req{i}", eos_id=1)
+    outs = [router.generate(p, conf["max_new"], rid=f"req{i}", eos_id=1)
             for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2433,8 +2485,10 @@ def swarm_run(label, fleet, prompts, ref_tokens, ref_logits, *, kernel,
     if crash is None and decodes != k * st["decode_steps"]:
         raise AssertionError(f"swarm {label}: {decodes} decode_stage calls "
                              f"for {st['decode_steps']} steps of {k} stages")
-    launches = check_launches(f"swarm {label}", counts, kernel,
-                              per_stage * decodes)
+    launches = check_launches(
+        f"swarm {label}", counts, kernel,
+        sum(stage_layers[sid] * len(v) for (op, sid), v in
+            router.rpc_s.items() if op == "decode_stage"))
     flat_ref = [x for steps in ref_logits for x in steps]
     if len(router.logits) != len(flat_ref):
         raise AssertionError(f"swarm {label}: {len(router.logits)} logit "
@@ -2613,7 +2667,8 @@ def swarm_serve_phase() -> dict:
                          f"{layout}{', stage-1 crash' if crashed else ''}")
                 runs[(layout, crashed)] = swarm_run(
                     label, fleet, prompts, ref_tokens, ref_logits,
-                    kernel=kernel, per_stage=per_stage, crash=victim)
+                    kernel=kernel, stage_layers=[per_stage] * s["stages"],
+                    crash=victim)
                 open_.pop().close()
         # run 6: adoption through the chunk swarm
         seed_store = ChunkStore(root / "seed")
@@ -2638,7 +2693,8 @@ def swarm_serve_phase() -> dict:
                                  f"{fleet.router.holders(1)}")
         runs["adopt"] = swarm_run("run 6, stage 1 adopted", fleet, prompts,
                                   ref_tokens, ref_logits,
-                                  kernel="flash_decode", per_stage=per_stage)
+                                  kernel="flash_decode",
+                                  stage_layers=[per_stage] * s["stages"])
         served = adopter.served_chunks
         want = s["requests"] + runs["adopt"]["stats"]["decode_steps"]
         if served != want:
@@ -2676,6 +2732,378 @@ def swarm_serve_phase() -> dict:
             "adopt_chunks": fetched["chunks_fetched"], "wall_s": wall}
 
 
+
+# -- phase 11: the MoE and VLM families ---------------------------------------
+
+
+def moe_flash_decode() -> dict:
+    """Kernels 5 and 6 at ``MOE_FD_CASES`` (bf16), and at the MoE swarm's
+    B = 1 (``b1_flash_decode`` at 16 heads of 128): each against its
+    plain version within ``TOL``, a repeat bitwise equal, kernel 6 on a
+    permuted pool of 16-cell blocks bitwise equal to kernel 5 on the
+    gathered view; timed beside SDPA (kernel 6: the gather + SDPA),
+    bound from the bytes."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models.attention import (PagedKVCache, decode_valid_mask,
+                                              paged_view)
+    out = {"flash_decode": {}, "flash_decode_paged": {}}
+    for i, (label, b, s_max, hk, g, dh, lengths) in enumerate(MOE_FD_CASES):
+        q, k, v, length = flash_decode_inputs(b, s_max, hk, g, dh,
+                                              torch.bfloat16, lengths,
+                                              seed=60 + i)
+        kp, vp, table = paged_pool(k, v, length, 16, seed=60 + i)
+        dense = fd.flash_decode(q, k, v, length)
+        paged = fd.flash_decode_paged(q, kp, vp, table, length)
+        torch.cuda.synchronize()
+        view = paged_view(PagedKVCache(kp, vp, table, length))
+        if not torch.equal(paged, fd.flash_decode(q, view.k, view.v, length)):
+            raise AssertionError(f"flash_decode_paged {label}: not bitwise "
+                                 "equal to flash_decode on the gathered view")
+        valid = decode_valid_mask(length, s_max, None)[:, None, None, :]
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        shape = {"B": b, "S_max": s_max, "Hk": hk, "G": g, "dh": dh,
+                 "dtype": "bfloat16", "lengths": lengths}
+        for name, got, run, plain, library, extra in (
+                ("flash_decode", dense,
+                 lambda: fd.flash_decode(q, k, v, length),
+                 lambda: fd.flash_decode_torch(q, k, v, length),
+                 lambda: torch.nn.functional.scaled_dot_product_attention(
+                     qt, kt, vt, attn_mask=valid), 0),
+                ("flash_decode_paged", paged,
+                 lambda: fd.flash_decode_paged(q, kp, vp, table, length),
+                 lambda: fd.flash_decode_paged_torch(q, kp, vp, table,
+                                                     length),
+                 lambda: torch.nn.functional.scaled_dot_product_attention(
+                     qt, paged_view(PagedKVCache(kp, vp, table, length))
+                     .k.transpose(1, 2), paged_view(PagedKVCache(
+                         kp, vp, table, length)).v.transpose(1, 2),
+                     attn_mask=valid), table.numel() * 4)):
+            err = check_repeat_and_close(f"{name} {label}", got, run(),
+                                         plain(), torch.bfloat16)
+            bound, bound_by = flash_decode_bound(q, k, length, None,
+                                                 extra_bytes=extra)
+            e = {"ms": time_ms(run), "plain_ms": time_ms(plain),
+                 "bound_ms": bound, "bound_by": bound_by,
+                 "library_ms": time_ms(library), "max_abs_err": err,
+                 "shape": shape}
+            out[name][label] = e
+            log(f"kernel {name} {label} (Hq=Hk={hk}, dh={dh}, B={b}, "
+                f"S_max={s_max}, lengths {lengths}): max|err|={err:.3g} "
+                f"(tol {TOL[torch.bfloat16]}), repeat bitwise; "
+                f"{e['ms']:.5f} ms, bound {bound:.6f} ms ({bound_by}), plain "
+                f"{e['plain_ms']:.5f} ms, {'gather+' if extra else ''}SDPA "
+                f"{e['library_ms']:.5f} ms")
+        del q, k, v, kp, vp, view, kt, vt
+    torch.cuda.empty_cache()
+    b1 = b1_flash_decode("deepseek-moe-16b swarm", 16, 1, 128, seed=70)
+    for name, e in b1.items():
+        out[name]["deepseek-moe-16b swarm B=1"] = e
+    return out
+
+
+def meta_param_count(cfg) -> int:
+    """Parameters of ``cfg``'s tree, counted on the ``meta`` device."""
+    from repro_torch.core.sync_engine import leaves
+    from repro_torch.models import transformer as tf
+    return sum(t.numel() for t in leaves(tf.alloc_lm(cfg, device="meta")))
+
+
+def moe_serve() -> dict:
+    """deepseek-moe-16b at full width and depth through ``launch.serve``
+    (``MOE_SERVE``): the continuous engine twice (run 1 warms the card
+    up), the paged engine twice, then ``ContinuousEngine(batch_admit=
+    False)`` on the same trace and weights. Gates: every request done,
+    tokens in the vocabulary, kernel 5 (6) launched n_layers = 28 times
+    a decode step (the dense first layer counted), the other never; the
+    paged tokens equal the foil's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.registry import get_model
+    from repro_torch.serving.engine import make_engine
+    args = serve_mod.build_parser().parse_args(MOE_SERVE)
+    cfg = get_config(args.arch)
+    n_meta = meta_param_count(cfg)
+    if n_meta != cfg.param_count() + (2 * cfg.n_layers + 1) * cfg.d_model:
+        raise AssertionError(f"moe: {n_meta} parameters on meta, the config "
+                             f"counts {cfg.param_count()} + the norms")
+    runs = {}
+    for engine in ("continuous", "paged"):
+        for run in (1, 2):
+            torch.cuda.reset_peak_memory_stats()
+            reset_decode_counts()
+            s = serve_mod.main(MOE_SERVE + ["--engine", engine])
+            counts = decode_counts()
+            torch.cuda.synchronize()
+            if not all(s["done"]) or s["requests"] != 8:
+                raise AssertionError(f"moe {engine}: a request did not finish")
+            if not all(0 <= t < s["padded_vocab"]
+                       for o in s["outputs"] for t in o):
+                raise AssertionError(f"moe {engine}: token outside the "
+                                     "vocabulary")
+            kernel = "flash_decode_paged" if engine == "paged" \
+                else "flash_decode"
+            s["launches"] = check_launches(
+                f"moe {engine}", counts, kernel,
+                cfg.n_layers * s["decode_steps"])
+            s["peak_bytes"] = torch.cuda.max_memory_allocated()
+            extra = (f" blocks_peak={s['blocks_peak']}/{s['pool_blocks']} "
+                     f"prefix_hit_rate={s['prefix_hit_rate']:.3f}"
+                     if engine == "paged" else "")
+            log(f"moe {args.arch} {engine} run {run}: "
+                f"tok/s={s['tokens_per_s']:.1f} "
+                f"p50={s['latency_p50_s'] * 1e3:.1f}ms "
+                f"p95={s['latency_p95_s'] * 1e3:.1f}ms "
+                f"decode_steps={s['decode_steps']} launches={s['launches']} "
+                f"({s['launches'] // s['decode_steps']} a step) "
+                f"tokens={s['tokens_out']} wall={s['wall_s']:.3f}s "
+                f"peak_mem={s['peak_bytes'] / 2**30:.2f}GiB{extra}")
+            runs[(engine, run)] = s
+            gc.collect()
+            torch.cuda.empty_cache()
+    if runs[("paged", 2)]["outputs"] != runs[("paged", 1)]["outputs"]:
+        raise AssertionError("moe paged: the two runs differ")
+    model = get_model(cfg, "cuda")
+    params = model.init(args.seed)
+    eng = make_engine("continuous", model, params, batch_admit=False,
+                      **serve_mod.engine_kwargs(args))
+    reqs = serve_mod.make_requests(args, cfg.vocab)
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained()
+    foil = eng.perf_summary()
+    if [list(r.out_tokens) for r in reqs] != runs[("paged", 2)]["outputs"]:
+        raise AssertionError("moe: paged greedy tokens differ from "
+                             "ContinuousEngine(batch_admit=False)'s")
+    log(f"moe continuous batch_admit=False: identical greedy tokens to the "
+        f"paged run; tok/s={foil['tokens_per_s']:.1f} "
+        f"p50={foil['latency_p50_s'] * 1e3:.1f}ms "
+        f"p95={foil['latency_p95_s'] * 1e3:.1f}ms; parameters {n_meta} "
+        f"(meta device)")
+    del eng, params, model, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    keys = ("tokens_per_s", "latency_p50_s", "latency_p95_s",
+            "decode_steps", "tokens_out", "wall_s", "launches", "peak_bytes")
+    out = {e: {k: runs[(e, 2)][k] for k in keys}
+           for e in ("continuous", "paged")}
+    out["paged"].update({k: runs[("paged", 2)][k] for k in
+                         ("blocks_peak", "pool_blocks", "prefix_hit_rate")})
+    out["foil"] = {k: foil[k] for k in keys[:6]}
+    out["params"] = n_meta
+    return out
+
+
+def moe_swarm() -> dict:
+    """deepseek-moe-16b at full width, depth ``MOE_SWARM["n_layers"]``,
+    2 stages x 2 replicas over loopback on the serving trace: stage 0
+    holds dense0 (and its cache, dense or paged) and 2 MoE layers, stage
+    1 one. Runs: the B = 1 engine; healthy dense and paged chains; the
+    dense chain with stage 1's first holder crashed 3 responses in.
+    Gates (``swarm_run``): tokens and every step's last-stage logits
+    bitwise the B = 1 engine's; launches the layers of each answered
+    ``decode_stage``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.registry import get_model
+    s = MOE_SWARM
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(s["arch"]), n_layers=s["n_layers"])
+    stage_layers = [hi - lo + (tf.n_dense_prefix(cfg) if i == 0 else 0)
+                    for i, (lo, hi) in enumerate(tf.stage_bounds(
+                        cfg, s["stages"]))]
+    model = get_model(cfg, "cuda")
+    params = model.init(s["seed"])
+    args = serve_mod.build_parser().parse_args(
+        ["--requests", str(s["requests"]), "--prompt-len",
+         str(s["prompt_len"]), "--max-new", str(s["max_new"]),
+         "--seed", str(s["seed"])])
+    reqs = serve_mod.make_requests(args, cfg.vocab)
+    prompts = [r.prompt.tolist() for r in reqs]
+    ref_tokens, ref_logits = swarm_reference(model, params, cfg, reqs,
+                                             conf=s)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_moe_swarm_"))
+    runs = {}
+    try:
+        for layout, kernel, crashed in (("dense", "flash_decode", False),
+                                        ("paged", "flash_decode_paged",
+                                         False),
+                                        ("dense", "flash_decode", True)):
+            fleet = SwarmFleet(cfg, params, root / f"{layout}{crashed}",
+                               layout, conf=s)
+            try:
+                victim = None
+                if crashed:
+                    first = fleet.router._pick(1)
+                    victim = next(v for v in fleet.servers.values()
+                                  if v.addr == first)
+                runs[(layout, crashed)] = swarm_run(
+                    f"moe {layout}{', stage-1 crash' if crashed else ''}",
+                    fleet, prompts, ref_tokens, ref_logits, kernel=kernel,
+                    stage_layers=stage_layers, crash=victim, conf=s)
+            finally:
+                fleet.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"moe swarm: {s['arch']} depth {s['n_layers']} stages "
+        f"{tf.stage_bounds(cfg, s['stages'])} (layers a stage "
+        f"{stage_layers}) x{s['replicas']} peak_mem={peak / 2**30:.2f}GiB in "
+        f"{time.perf_counter() - t0:.1f}s")
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"runs": runs, "peak_bytes": peak, "stage_layers": stage_layers}
+
+
+def vlm_decode() -> dict:
+    """phi-3-vision-4.2b at full width and depth: one prefill of B = 2
+    prompts of ``VLM["prompt_len"]`` tokens behind a random 576-patch
+    frontend (embedding scale), then ``VLM["steps"]`` greedy decode
+    steps. Gates: every step's logits within ``VLM_TOL`` of the full
+    forward's (teacher forcing) at its position; kernel 5 launched 32
+    times a step; 2 stages (the frontend into stage 0) bitwise the
+    monolithic prefill and decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tf
+    v = VLM
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(v["arch"])
+    model = registry.get_model(cfg, "cuda")
+    params = model.init(v["seed"])
+    gen = torch.Generator(device="cuda").manual_seed(v["seed"])
+    b, n = v["batch"], v["prompt_len"]
+    toks = torch.randint(2, cfg.vocab, (b, n), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    front = (0.02 * torch.randn((b, cfg.n_frontend, cfg.d_model),
+                                generator=gen, device="cuda")
+             ).to(cfg.torch_dtype)
+    shape = ShapeConfig("vlm", "decode", v["max_len"], b)
+    logits, cache = model.prefill(params, {"tokens": toks, "frontend": front},
+                                  model.init_cache(b, shape))
+    steps, gen_toks = [logits], []
+    reset_decode_counts()
+    for _ in range(v["steps"]):
+        tok = steps[-1].argmax(-1, keepdim=True).to(torch.int32)
+        gen_toks.append(tok)
+        lg, cache = model.decode(params, tok, cache)
+        steps.append(lg)
+    torch.cuda.synchronize()
+    counts = decode_counts()
+    launches = check_launches("vlm decode", counts, "flash_decode",
+                              cfg.n_layers * v["steps"])
+    with torch.no_grad():
+        full, _ = tf.forward(cfg, params, torch.cat([toks] + gen_toks, 1),
+                             frontend=front)
+    f = cfg.n_frontend
+    errs, agree = [], 0
+    for j, lg in enumerate(steps):
+        want = full[:, f + n - 1 + j]
+        errs.append((lg.float() - want.float()).abs().max().item())
+        agree += int((lg.argmax(-1) == want.argmax(-1)).sum())
+    scale = full[:, f + n - 1:].float().abs().max().item()
+    if not all(math.isfinite(e) for e in errs) or max(errs) > VLM_TOL:
+        raise AssertionError(f"vlm: decode vs teacher forcing max|err| "
+                             f"{max(errs)} > {VLM_TOL}")
+    stages = registry.make_stages(cfg, 2)
+    sp = [st.slice_params(params) for st in stages]
+    sc = [st.init_cache(b, v["max_len"]) for st in stages]
+    x = toks
+    for i, (st, p, c) in enumerate(zip(stages, sp, sc)):
+        x, _ = st.prefill(p, x, c, frontend=front if i == 0 else None)
+    staged = [x]
+    for tok in gen_toks:
+        x = tok
+        for st, p, c in zip(stages, sp, sc):
+            x, _ = st.decode(p, x, c)
+        staged.append(x)
+    if not all(torch.equal(a, c) for a, c in zip(staged, steps)):
+        raise AssertionError("vlm: 2 stages not bitwise the monolithic "
+                             "prefill and decode")
+    peak = torch.cuda.max_memory_allocated()
+    wall = time.perf_counter() - t0
+    log(f"vlm {cfg.name}: {cfg.n_layers} layers dh={cfg.d_model // cfg.n_heads}"
+        f", prefill B={b} of {f} patches + {n} tokens, {v['steps']} decode "
+        f"steps: max|logit err| vs teacher forcing {max(errs):.4g} (tol "
+        f"{VLM_TOL}; logits' max |value| {scale:.3g}), greedy agreement "
+        f"{agree}/{len(steps) * b}, launches {launches} "
+        f"({launches // v['steps']} a step); 2 stages bitwise the monolithic; "
+        f"peak_mem={peak / 2**30:.2f}GiB in {wall:.1f}s")
+    del params, model, cache, sc, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max(errs), "errs": errs, "agree": agree,
+            "launches": launches, "peak_bytes": peak, "wall_s": wall}
+
+
+def moe_train() -> dict:
+    """The MoE loss under autograd (``MOE_TRAIN``): deepseek-moe-16b at
+    full width, depth 2 (dense0 + 1 MoE), one batch of 2 x 512 random
+    tokens through ``ModelDef.loss`` and ``backward``. Gates: loss,
+    lb_loss (> 0) and dropped_frac (> 0: T = 1024 > 64, capacity
+    int(1.25 * 6 * 1024 / 64) = 120 of 1024) finite; every parameter's
+    gradient finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.sync_engine import leaves
+    from repro_torch.models.registry import get_model
+    m = MOE_TRAIN
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(m["arch"]), n_layers=m["n_layers"])
+    model = get_model(cfg, "cuda")
+    params = model.init(m["seed"])
+    for t in leaves(params):
+        t.requires_grad_(True)
+    gen = torch.Generator(device="cuda").manual_seed(m["seed"])
+    shape = (m["batch"], m["seq_len"])
+    batch = {"tokens": torch.randint(2, cfg.vocab, shape, generator=gen,
+                                     device="cuda", dtype=torch.int32),
+             "targets": torch.randint(2, cfg.vocab, shape, generator=gen,
+                                      device="cuda", dtype=torch.int32),
+             "mask": torch.ones(shape, device="cuda")}
+    loss, metrics = model.loss(params, batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    vals = {k: float(metrics[k].detach()) for k in
+            ("loss", "ce", "lb_loss", "dropped_frac")}
+    bad = [k for k, x in vals.items() if not math.isfinite(x)]
+    if bad or vals["lb_loss"] <= 0 or vals["dropped_frac"] <= 0:
+        raise AssertionError(f"moe train: {vals}")
+    grads = leaves(params)
+    if any(t.grad is None or not torch.isfinite(t.grad).all() for t in grads):
+        raise AssertionError("moe train: a gradient is missing or not finite")
+    peak = torch.cuda.max_memory_allocated()
+    wall = time.perf_counter() - t0
+    log(f"moe train {cfg.name} depth {cfg.n_layers}: loss={vals['loss']:.4f} "
+        f"ce={vals['ce']:.4f} lb_loss={vals['lb_loss']:.4f} dropped_frac="
+        f"{vals['dropped_frac']:.4f} on {shape[0]}x{shape[1]} tokens; "
+        f"{len(grads)} gradients finite; peak_mem={peak / 2**30:.2f}GiB in "
+        f"{wall:.1f}s")
+    del params, grads, loss, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(vals, peak_bytes=peak, wall_s=wall)
+
+
+def moe_vlm_phase() -> dict:
+    """Phase 11: (a) kernels 5 and 6 at the MoE and VLM attention
+    shapes, (b) deepseek-moe-16b served at full width and depth, (c) its
+    swarm with a crash, (d) phi-3-vision-4.2b decode against teacher
+    forcing and staged, (e) the MoE loss under autograd."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"kernels": moe_flash_decode(), "serve": moe_serve(),
+           "swarm": moe_swarm(), "vlm": vlm_decode(), "train": moe_train()}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"moe/vlm phase: {out['wall_s']:.1f}s")
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dist-slots", type=int, default=None,
@@ -2685,6 +3113,9 @@ def main(argv=None) -> None:
     ap.add_argument("--swarm-only", action="store_true",
                     help="run only phase 10, swarm serving (after the "
                          "build), and print no result")
+    ap.add_argument("--moe-only", action="store_true",
+                    help="run only phase 11, the MoE and VLM families "
+                         "(after the build), and print no result")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False     # fp32 stays fp32
@@ -2700,6 +3131,10 @@ def main(argv=None) -> None:
     if args.swarm_only:
         swarm_serve_phase()
         log(f"phase 10 alone passed in {time.perf_counter() - t0:.1f}s")
+        return
+    if args.moe_only:
+        moe_vlm_phase()
+        log(f"phase 11 alone passed in {time.perf_counter() - t0:.1f}s")
         return
     kernels = ([check_flash_decode()] + check_int8_codec()
                + [check_flash_decode_paged()])
@@ -2777,6 +3212,19 @@ def main(argv=None) -> None:
             entry["launches_swarm"]["adopt"] = swarm["runs"]["adopt"][
                 "launches"]
         entry["swarm_b1"] = swarm["b1"][entry["name"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = moe_vlm_phase()
+    for entry, engine, layout in ((kernels[0], "continuous", "dense"),
+                                  (kernels[5], "paged", "paged")):
+        entry["moe_shapes"] = moe["kernels"][entry["name"]]
+        entry["launches_moe"] = {
+            "serve": moe["serve"][engine]["launches"],
+            "swarm": moe["swarm"]["runs"][(layout, False)]["launches"]}
+        if layout == "dense":
+            entry["launches_moe"]["swarm_crash"] = \
+                moe["swarm"]["runs"][("dense", True)]["launches"]
+            entry["launches_moe"]["vlm"] = moe["vlm"]["launches"]
     log(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

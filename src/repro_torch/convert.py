@@ -39,9 +39,12 @@ def from_jax_cache(cache, device="cuda") -> dict:
     """``repro`` cache ``{"scan": KVCache, "prefix": [KVCache, ...]}``
     with numpy leaves (anything with ``k``, ``v`` and ``length``, plus
     ``table`` for a ``PagedKVCache``) -> the port's cache on
-    ``device``. A stacked paged leaf's (L, B, nb) table, which the JAX
-    package broadcasts over layers, becomes the port's one (B, nb)
-    table; its layers must agree."""
+    ``device``, the dense prefix layers' caches included. A stacked
+    paged leaf's (L, B, nb) table, which the JAX package broadcasts over
+    layers, becomes the port's one (B, nb) table, which every leaf then
+    shares; the layers' and leaves' tables must agree."""
+    shared = []
+
     def one(c):
         k, v = to_tensor(c.k, device), to_tensor(c.v, device)
         length = to_tensor(c.length, device)
@@ -53,6 +56,12 @@ def from_jax_cache(cache, device="cuda") -> dict:
                 raise ValueError("paged cache: per-layer block tables "
                                  "differ; the port shares one table")
             table = table[0].contiguous()
+        if shared:
+            if not torch.equal(table, shared[0]):
+                raise ValueError("paged cache: the KV leaves' block tables "
+                                 "differ; the port shares one table")
+            table = shared[0]
+        shared.append(table)
         return PagedKVCache(k, v, table, length)
     return {"scan": one(cache["scan"]),
             "prefix": [one(c) for c in cache["prefix"]]}

@@ -43,6 +43,10 @@ import numpy as np
 import torch
 
 _POLL_S = 0.05
+# how long a failure waits for ranks that are dying to be reaped, so its
+# message names every rank that exited (a killed rank's sockets close
+# before its exit code can be read)
+_REAP_S = 1.0
 
 
 class RankFailure(RuntimeError):
@@ -276,7 +280,7 @@ class RankMesh:
         raise ``RankFailure`` if a rank failed, died or stalled."""
         self._check()
         now = time.monotonic()
-        errors = []
+        errors, closed = [], []
         for r, (conn, proc) in enumerate(zip(self._conns, self._procs)):
             # read before draining: what a rank sent before it died is
             # then drained below
@@ -286,6 +290,7 @@ class RankMesh:
                 try:
                     kind, seq, payload = conn.recv()
                 except (EOFError, OSError):
+                    closed.append(r)
                     break
                 if kind == "error":
                     errors.append(f"rank {r} raised:\n{payload}")
@@ -302,7 +307,25 @@ class RankMesh:
                 errors.append(f"rank {r}: no progress in "
                               f"{self.timeout:.0f} s")
         if errors:
-            self._fail("\n".join(errors))
+            self._fail("\n".join(errors + self._reap(closed, errors)))
+
+    def _reap(self, closed: list[int], errors: list[str]) -> list[str]:
+        """On a failure, wait up to ``_REAP_S`` for the ranks in
+        ``closed``, whose pipe reached its end: they are dying, and a rank
+        whose peer was killed can report the closed connection before the
+        killed rank's exit code is readable. A live rank is not waited
+        for. Returns a line for each rank that exited and ``errors`` does
+        not name yet."""
+        deadline = time.monotonic() + _REAP_S
+        lines = []
+        for r in closed:
+            proc = self._procs[r]
+            if proc.exitcode is None:
+                proc.join(max(0.0, deadline - time.monotonic()))
+            if proc.exitcode is not None and \
+                    not any(e.startswith(f"rank {r} exited") for e in errors):
+                lines.append(f"rank {r} exited with code {proc.exitcode}")
+        return lines
 
     def _wait(self, seq: int) -> None:
         """Block until every rank has completed command ``seq``."""

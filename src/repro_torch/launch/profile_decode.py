@@ -157,21 +157,23 @@ def _kernel_trace(cfg, args, flash_decode) -> dict:
 
 
 def _paged_copy(model, cache, slots, shape, blk):
-    """The dense cache's contents in a paged pool: slot b's virtual
-    block i is pool block 1 + b * nb + i (block 0 is trash)."""
+    """The dense cache's contents in a paged pool, every KV leaf (the
+    dense prefix layers' too): slot b's virtual block i is pool block
+    1 + b * nb + i (block 0 is trash)."""
     import torch
 
+    from repro_torch.models.attention import kv_leaves
     from repro_torch.serving.paging import build_paged_cache
     paged, nb, _ = build_paged_cache(model, slots, shape, block_size=blk)
-    dense, pool = cache["scan"], paged["scan"]
-    n_layers = pool.k.shape[0]
-    pool.k[:, 1:].view(n_layers, slots, nb * blk, *pool.k.shape[3:]).copy_(
-        dense.k)
-    pool.v[:, 1:].view(n_layers, slots, nb * blk, *pool.v.shape[3:]).copy_(
-        dense.v)
-    pool.table.copy_(torch.arange(1, slots * nb + 1, dtype=torch.int32,
-                                  device=pool.table.device).view(slots, nb))
-    pool.length.copy_(dense.length)
+    for dense, pool in zip(kv_leaves(cache), kv_leaves(paged), strict=True):
+        lead = pool.k.shape[:-4]
+        cells = (slots, nb * blk) + tuple(pool.k.shape[-2:])
+        pool.k[..., 1:, :, :, :].view(*lead, *cells).copy_(dense.k)
+        pool.v[..., 1:, :, :, :].view(*lead, *cells).copy_(dense.v)
+        pool.length.copy_(dense.length)
+    paged["scan"].table.copy_(torch.arange(
+        1, slots * nb + 1, dtype=torch.int32,
+        device=paged["scan"].table.device).view(slots, nb))
     return paged
 
 

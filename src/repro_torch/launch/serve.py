@@ -25,6 +25,16 @@ equal the single-host engine's, exiting non-zero if they do not:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
       --reduced --swarm --stages 2 --replicas 2 --requests 4
 
+The transformer families serve alike: ``--arch deepseek-moe-16b`` (MoE,
+its dense first layer's cache on stage 0), ``dbrx-132b`` (MoE; on one
+card only ``--reduced``: its weights outgrow the card) and
+``phi-3-vision-4.2b`` (VLM, served on text prompts). The reduced
+deepseek-moe-16b has one stacked layer after its dense one, so its swarm
+is one stage (``dense0`` rides with it), two replicas, one crashed:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \
+      --reduced --swarm --stages 1 --device cpu
+
 The single-host reference is ``ContinuousEngine(batch_slots=1,
 batch_admit=False)``: a chain runs every request at B = 1, and on the
 card a matmul row's bits may depend on how many rows share the call.
@@ -203,6 +213,13 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.device == "cuda":
+        need = cfg.param_count() * torch.finfo(cfg.torch_dtype).bits // 8
+        have = torch.cuda.get_device_properties(0).total_memory
+        if need > have:          # dbrx-132b: 264 GB of bf16 weights
+            raise ValueError(f"{cfg.name}: {need / 1e9:.1f} GB of weights "
+                             f"do not fit the card's {have / 1e9:.1f} GB; "
+                             "pass --reduced")
     if args.attn_impl != cfg.decode_attn_impl:
         cfg = dataclasses.replace(cfg, decode_attn_impl=args.attn_impl)
     model = get_model(cfg, args.device)

@@ -77,6 +77,15 @@ class PagedKVCache:
         return self.table.shape[-1] * self.k.shape[-3]
 
 
+def kv_leaves(cache: dict) -> list:
+    """The KV caches of a model's cache tree ``{"scan": stacked,
+    "prefix": [unstacked, ...]}``: the stack first, then the dense
+    prefix layers'. Index a leaf's slot as ``k[..., slot, :, :, :]`` and
+    ``length[..., slot]``: that holds for a stacked and an unstacked
+    leaf alike."""
+    return [cache["scan"]] + list(cache["prefix"])
+
+
 def paged_view(cache: PagedKVCache) -> KVCache:
     """Gather one layer's pool through the table into the dense
     per-slot view (B, nb * blk, Hk, dh): cell for cell the dense cache

@@ -1,5 +1,6 @@
 """Model registry (port of ``repro.models.registry``): a family-uniform
-interface over the model zoo. The port has the dense family so far:
+interface over the model zoo. The port has the transformer families
+(dense, MoE, VLM) so far:
 
   * ``init(seed) -> params``
   * ``loss(params, batch) -> (loss, metrics)`` (differentiable)
@@ -52,7 +53,8 @@ def _lm_def(cfg: ArchConfig, device: torch.device) -> ModelDef:
 
     def prefill(params, batch, cache):
         return transformer.prefill(cfg, params, batch["tokens"], cache,
-                                   prompt_len=batch.get("prompt_len"))
+                                   prompt_len=batch.get("prompt_len"),
+                                   frontend=batch.get("frontend"))
 
     def decode(params, token, cache):
         return transformer.decode_step(cfg, params, token, cache)
@@ -68,11 +70,11 @@ def _lm_def(cfg: ArchConfig, device: torch.device) -> ModelDef:
 
 
 def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.family != "dense" or cfg.moe is not None:
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-            "port has the dense family only; MoE, VLM, SSM, hybrid and "
-            "enc-dec come in a later slice")
+            "port has the dense, MoE and VLM families; SSM and hybrid "
+            "come in a later slice, then enc-dec")
 
 
 def get_model(cfg: ArchConfig, device="cuda") -> ModelDef:
@@ -88,13 +90,15 @@ class StageDef:
     """One contiguous-layer pipeline stage of a decoder-only LM.
 
     A stage owns layers ``[lo, hi)`` of the stack; the first stage also
-    owns the embedding, the last the final norm and LM head.
+    owns the embedding and any dense-prefix layers (``dense{i}``, with
+    their caches), the last the final norm and LM head.
     ``slice_params`` takes the stage's parameter subtree (views) from
     the full tree; ``init_cache(batch_size, max_len)`` allocates the
     stage-local KV cache on the device ``make_stages`` was given (or
     ``device=``);
     ``prefill`` / ``decode`` run the stage forward (tokens in / logits
-    out at the chain's ends, (B, S, D) activations in between).
+    out at the chain's ends, (B, S, D) activations in between; the
+    first stage's ``prefill`` also takes a VLM's ``frontend``).
     Composing every stage in order is bitwise the monolithic
     ``ModelDef.prefill`` / ``decode``: both are the same
     ``stage_prefill`` / ``stage_decode``."""
@@ -121,8 +125,7 @@ def make_stages(cfg: ArchConfig, k_stages: int,
                 device="cuda") -> list[StageDef]:
     """Partition a decoder-only model into ``k_stages`` pipeline stages.
     Only the transformer families (dense / moe / vlm) have the stage
-    seam: the others raise ``ValueError``, as in the JAX package; moe
-    and vlm raise ``NotImplementedError`` until they are ported."""
+    seam: the others raise ``ValueError``, as in the JAX package."""
     if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(
             f"stage partition unsupported for family {cfg.family!r} "
@@ -137,16 +140,18 @@ def make_stages(cfg: ArchConfig, k_stages: int,
             return transformer.slice_stage_params(
                 cfg, params, lo, hi, first=first, last=last)
 
-        def init_cache(batch_size, max_len, lo=lo, hi=hi, device=device):
+        def init_cache(batch_size, max_len, lo=lo, hi=hi, first=first,
+                       device=device):
             # device="meta": the abstract cache (a paged pool's template)
             return transformer.init_stage_cache(cfg, batch_size, max_len,
-                                                lo, hi, device=device)
+                                                lo, hi, first=first,
+                                                device=device)
 
-        def prefill(params, inp, cache, prompt_len=None, first=first,
-                    last=last):
+        def prefill(params, inp, cache, prompt_len=None, frontend=None,
+                    first=first, last=last):
             return transformer.stage_prefill(
                 cfg, params, inp, cache, first=first, last=last,
-                prompt_len=prompt_len)
+                prompt_len=prompt_len, frontend=frontend)
 
         def decode(params, inp, cache, first=first, last=last):
             return transformer.stage_decode(

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.models import attention as attn
 
 MIN_BUCKET = 8        # smallest prompt pad bucket
 NEG_INF = -1e30
@@ -462,12 +463,14 @@ class ContinuousEngine(_EngineBase):
 
     def _install(self, req: Request, slot: int, sub, row: int,
                  logits: torch.Tensor) -> None:
-        """Copy row ``row`` of the prefilled cache ``sub`` into ``slot``,
-        then reset the slot's state (``_admit_state``)."""
-        big, small = self.cache["scan"], sub["scan"]
-        big.k[:, slot] = small.k[:, row]
-        big.v[:, slot] = small.v[:, row]
-        big.length[:, slot] = small.length[:, row]
+        """Copy row ``row`` of every KV cache of the prefilled ``sub``
+        (the stack and the dense prefix layers') into ``slot``, then
+        reset the slot's state (``_admit_state``)."""
+        for big, small in zip(attn.kv_leaves(self.cache),
+                              attn.kv_leaves(sub), strict=True):
+            big.k[..., slot, :, :, :] = small.k[..., row, :, :, :]
+            big.v[..., slot, :, :, :] = small.v[..., row, :, :, :]
+            big.length[..., slot] = small.length[..., row]
         self._admit_state(req, slot, logits)
 
     def _admit_state(self, req: Request, slot: int,

@@ -252,22 +252,16 @@ def paged_cache_from_template(template, *, slots: int, block_size: int,
     (slots, nb) table of -1 that every layer shares and (L, slots)
     lengths; an unstacked leaf the same without L.
 
+    Every leaf (the stack and the dense prefix layers') shares the ONE
+    table tensor, as the JAX package shares one table across its KV
+    leaves: a slot's blocks hold the same cells in every layer.
+
     nb = the cache width (``max_len``, or the SWA ring) over
     ``block_size``, widened to ``capacity_blocks`` for full-causal
     models. Returns (cache, nb, n_blocks); ``n_blocks=None`` sizes the
     pool to the dense capacity (slots * nb blocks + trash)."""
-    def kv_leaves(node):
-        if isinstance(node, attn.KVCache):
-            yield node
-        elif isinstance(node, dict):
-            for v in node.values():
-                yield from kv_leaves(v)
-        elif isinstance(node, list):
-            for v in node:
-                yield from kv_leaves(v)
-
     widths = set()
-    for leaf in kv_leaves(template):
+    for leaf in attn.kv_leaves(template):
         s_max = leaf.k.shape[-3]
         if s_max % block_size:
             raise ValueError(f"block_size {block_size} must divide the "
@@ -281,6 +275,7 @@ def paged_cache_from_template(template, *, slots: int, block_size: int,
     nb = widths.pop() if widths else 0
     if n_blocks is None:
         n_blocks = slots * nb + 1 if nb else 2
+    table = torch.full((slots, nb), -1, dtype=torch.int32, device=device)
 
     def conv(node):
         if isinstance(node, dict):
@@ -292,11 +287,27 @@ def paged_cache_from_template(template, *, slots: int, block_size: int,
         pool = torch.zeros(lead + (n_blocks, block_size, hk, dh),
                            dtype=node.k.dtype, device=device)
         return attn.PagedKVCache(
-            pool, torch.zeros_like(pool),
-            torch.full((slots, nb), -1, dtype=torch.int32, device=device),
+            pool, torch.zeros_like(pool), table,
             torch.zeros(lead + (slots,), dtype=torch.int32, device=device))
 
     return conv(template), nb, n_blocks
+
+
+def scatter_row(pool_c: attn.PagedKVCache, dense_c: attn.KVCache,
+                row: torch.Tensor, blk: int) -> None:
+    """Copy a dense B = 1 cache leaf (stacked or not; a fresh scratch
+    prefill) into the pool blocks ``row`` maps ((nb,) block ids, -1 =
+    unmapped), in place; cells past the allocation, or of a scratch
+    wider than the table, go to trash block 0."""
+    nb = row.shape[0]
+    w = min(dense_c.k.shape[-3], nb * blk)
+    cells = torch.arange(w, device=row.device)
+    phys = row.long()[cells // blk].clamp_min(0)
+    off = cells % blk
+    pool_c.k[..., phys, off, :, :] = \
+        dense_c.k[..., 0, :w, :, :].to(pool_c.k.dtype)
+    pool_c.v[..., phys, off, :, :] = \
+        dense_c.v[..., 0, :w, :, :].to(pool_c.v.dtype)
 
 
 class PagedEngine(ContinuousEngine):
@@ -365,42 +376,44 @@ class PagedEngine(ContinuousEngine):
     # -- device-side pieces (in place on the shared pool) ---------------------
 
     def _set_len(self, slot: int, n: int) -> None:
-        self.cache["scan"].length[:, slot] = n
+        for leaf in attn.kv_leaves(self.cache):
+            leaf.length[..., slot] = n
 
     def _paginate(self, sub, row: list[int], slot: int) -> None:
         """Copy a dense batch-1 scratch prefill (width S) into the pool
-        blocks ``row`` maps, and take its lengths. Cells past the row
-        (scratch wider than the allocation) go to the trash block."""
-        pool, small = self.cache["scan"], sub["scan"]
-        w = min(small.k.shape[2], self.nb * self.blk)
-        cells = torch.arange(w)
-        r = torch.full((self.nb,), -1, dtype=torch.long)
-        r[:len(row)] = torch.tensor(row, dtype=torch.long)
-        phys = r[cells // self.blk].clamp_min(0).to(pool.k.device)
-        off = (cells % self.blk).to(pool.k.device)
-        pool.k[:, phys, off] = small.k[:, 0, :w].to(pool.k.dtype)
-        pool.v[:, phys, off] = small.v[:, 0, :w].to(pool.v.dtype)
-        pool.length[:, slot] = small.length[:, 0]
+        blocks ``row`` maps, in every layer (the dense prefix's too), and
+        take its lengths. Cells past the row (scratch wider than the
+        allocation) go to the trash block."""
+        r = torch.full((self.nb,), -1, dtype=torch.int32)
+        r[:len(row)] = torch.tensor(row, dtype=torch.int32)
+        r = r.to(self.device)
+        for pool, small in zip(attn.kv_leaves(self.cache),
+                               attn.kv_leaves(sub), strict=True):
+            scatter_row(pool, small, r, self.blk)
+            pool.length[..., slot] = small.length[..., 0]
 
     def _fork(self, src: int, dst: int) -> None:
         """Copy physical block ``src`` into ``dst`` in every layer."""
-        pool = self.cache["scan"]
-        pool.k[:, dst] = pool.k[:, src]
-        pool.v[:, dst] = pool.v[:, src]
+        for pool in attn.kv_leaves(self.cache):
+            pool.k[..., dst, :, :, :] = pool.k[..., src, :, :, :]
+            pool.v[..., dst, :, :, :] = pool.v[..., src, :, :, :]
 
     def _extend_slot(self, tokens: np.ndarray, slot: int, start: int,
                      seg_len: int) -> torch.Tensor:
         """One chunked-prefill segment for ``slot``: ``prefill_extend``
-        on the slot's batch-1 view of the cache (the pool tensors
-        themselves, the slot's table row and its column of lengths, all
-        views), so the segment's K/V and the new length land in place."""
-        pool = self.cache["scan"]
-        sub = attn.PagedKVCache(pool.k, pool.v, pool.table[slot:slot + 1],
-                                pool.length[:, slot:slot + 1])
+        on the slot's batch-1 view of the cache (each leaf's pool
+        tensors themselves, the slot's table row and its lengths, all
+        views), so the segment's K/V and the new lengths land in
+        place."""
+        def view(pool):
+            return attn.PagedKVCache(pool.k, pool.v,
+                                     pool.table[slot:slot + 1],
+                                     pool.length[..., slot:slot + 1])
         logits, _ = self._extend(
             self.params, {"tokens": torch.from_numpy(tokens).to(self.device),
                           "start": start, "seg_len": seg_len},
-            {"scan": sub, "prefix": []})
+            {"scan": view(self.cache["scan"]),
+             "prefix": [view(c) for c in self.cache["prefix"]]})
         return logits
 
     # -- host-side admission --------------------------------------------------
@@ -579,6 +592,7 @@ class PagedEngine(ContinuousEngine):
     def _push_tables(self) -> None:
         if not self._tbl_dirty:
             return
+        # one table, shared by every KV leaf
         self.cache["scan"].table.copy_(torch.from_numpy(self._tables))
         self._tbl_dirty = False
 

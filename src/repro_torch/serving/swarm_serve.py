@@ -83,7 +83,9 @@ Fault injection reuses the ``ChunkPeer`` knobs (``crash_after``,
 Unlike the JAX package, stage caches are written in place: a dense
 prefill gets a fresh ``init_stage_cache``, and a paged decode runs on a
 B = 1 view that shares the stage pool's storage, so its writes land in
-the pool. Decode attention is ``attention.decode_attention``: on a CUDA
+the pool. The first stage also holds the dense prefix layers' caches
+(``cache["prefix"]``: DeepSeek-MoE's first layer), dense or in its
+pool. Decode attention is ``attention.decode_attention``: on a CUDA
 device the flash-decode kernel (dense caches) or its paged variant
 (paged pools), on the CPU their plain versions.
 """
@@ -109,7 +111,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import registry
 from repro_torch.serving.engine import bucket_len
 from repro_torch.serving.paging import (BlockPool, BlockPoolExhaustedError,
-                                        paged_cache_from_template)
+                                        paged_cache_from_template,
+                                        scatter_row)
 
 Addr = tuple  # (host, port)
 
@@ -177,25 +180,6 @@ def _paged_view(pool_c: attn.PagedKVCache, row: torch.Tensor,
     length = torch.full(tuple(pool_c.length.shape[:-1]) + (1,), ln,
                         dtype=torch.int32, device=row.device)
     return attn.PagedKVCache(pool_c.k, pool_c.v, row[None], length)
-
-
-def _paged_scatter(pool_c: attn.PagedKVCache, dense_c: attn.KVCache,
-                   row: torch.Tensor, blk: int) -> None:
-    """Copy a freshly prefilled dense B = 1 stage cache leaf into the
-    pool blocks ``row`` maps, in place (cells past the allocation hit
-    trash block 0: they are pad positions beyond ``plen``)."""
-    nb = row.shape[0]
-    w = min(dense_c.k.shape[-3], nb * blk)
-    cells = torch.arange(w, device=row.device)
-    phys = row[cells // blk].long()
-    phys = torch.where(phys >= 0, phys, 0)
-    off = cells % blk
-    if pool_c.k.dim() == 5:                      # stacked (L, N, blk, ...)
-        pool_c.k[:, phys, off] = dense_c.k[:, 0, :w].to(pool_c.k.dtype)
-        pool_c.v[:, phys, off] = dense_c.v[:, 0, :w].to(pool_c.v.dtype)
-    else:
-        pool_c.k[phys, off] = dense_c.k[0, :w].to(pool_c.k.dtype)
-        pool_c.v[phys, off] = dense_c.v[0, :w].to(pool_c.v.dtype)
 
 
 # -- weight distribution ------------------------------------------------------
@@ -382,8 +366,8 @@ class StageServer(ChunkPeer):
                           detail=str(e))
                 return False
             rowd = self._row_arr(ent, row)
-            _map_caches(lambda c, nc: _paged_scatter(c, nc, rowd,
-                                                     self.block_size),
+            _map_caches(lambda c, nc: scatter_row(c, nc, rowd,
+                                                  self.block_size),
                         ent["cache"], new_cache)
             with self._slock:
                 self._reqs[(rid, sid)] = {"row": row, "len": plen,

@@ -197,8 +197,10 @@ class ElasticTrainer:
 
     def _inner_step(self, params, opt_state, batch, active) -> torch.Tensor:
         """One inner step of every live slot, in place. Returns the (k,)
-        losses (NaN for inactive slots, which are not computed)."""
+        losses (NaN for inactive slots, which are not computed); an MoE
+        model's load-balance losses go to ``self._lb_losses``."""
         losses = torch.full((self.k,), float("nan"), device=self.device)
+        self._lb_losses = torch.full_like(losses, float("nan"))
         for s in np.flatnonzero(np.asarray(active) > 0).tolist():
             p = tree_map(lambda x: x[s].detach().requires_grad_(True), params)
             b = {key: v[s] for key, v in batch.items()}
@@ -209,6 +211,8 @@ class ElasticTrainer:
                 grads, AdamWState(opt_state.step[s], _slot(opt_state.m, s),
                                   _slot(opt_state.v, s)), _slot(params, s))
             losses[s] = metrics["loss"].detach()
+            if "lb_loss" in metrics:
+                self._lb_losses[s] = metrics["lb_loss"].detach()
             del p, grads, loss, metrics
         return losses
 
@@ -366,6 +370,10 @@ class ElasticTrainer:
                    "inner_s": t1 - t0, "sync_s": t2 - t1,
                    "inner_chunk_s": self._chunk_s,
                    "inner_hop_s": self._hop_s}
+            if self.model.cfg.moe is not None:
+                # the last inner step's load-balance loss, beside its loss
+                rec["lb_loss"] = (float(self._lb_losses[mask].mean())
+                                  if live_w.any() else float("nan"))
             if overlap_rec is not None:
                 rec["overlap"] = overlap_rec
             if adm_report is not None:

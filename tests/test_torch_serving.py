@@ -146,6 +146,8 @@ def test_port_imports_neither_jax_nor_repro(tmp_path):
             "repro_torch.optim.nesterov, repro_torch.optim.schedules, "
             "repro_torch.data.pipeline, repro_torch.models.common, "
             "repro_torch.models.transformer, repro_torch.models.registry, "
+            "repro_torch.models.moe, repro_torch.models.attention, "
+            "repro_torch.launch.profile_decode, "
             "repro_torch.checkpointing, "
             "repro_torch.checkpointing.checkpoint, "
             "repro_torch.checkpointing.store, "
@@ -207,10 +209,9 @@ def test_serve_main_paged_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv", [["--arch", "mamba2-130m"],
-                                  ["--swarm", "--arch", "deepseek-moe-16b"]])
+                                  ["--arch", "seamless-m4t-medium"]])
 def test_serve_unported_paths_raise(argv):
-    """The families that are not ported yet (SSM, MoE) raise, on the
-    engines and on the swarm path."""
+    """The families that are not ported yet (SSM, enc-dec) raise."""
     from repro_torch.launch import serve
     with pytest.raises(NotImplementedError):
         serve.main(["--device", "cpu", "--reduced", *argv])

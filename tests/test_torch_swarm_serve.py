@@ -178,8 +178,11 @@ def test_stage_bounds_equal_reference_and_typed_errors(world):
     with pytest.raises(ValueError):
         registry.make_stages(get_config("mamba2-130m").reduced(), 2)
     for arch in ("deepseek-moe-16b", "phi-3-vision-4.2b"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            registry.make_stages(get_config(arch).reduced(), 2)
+        cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=4)
+        jcfg = dataclasses.replace(jget_config(arch).reduced(), n_layers=4)
+        stages = registry.make_stages(cfg, 2, "cpu")
+        assert [(s.lo, s.hi) for s in stages] == \
+            [(s.lo, s.hi) for s in jregistry.make_stages(jcfg, 2)]
 
 
 @pytest.mark.parametrize("k", [1, 2, 3, 4])
