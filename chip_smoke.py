@@ -124,9 +124,29 @@ Phases, each of which raises on failure (nothing is caught):
    depth 2 on 2 x 512 tokens under autograd, loss, load-balance loss
    and dropped share finite, every gradient finite.
 
+12. the SSM and hybrid families: kernels 5 and 6 at zamba2-2.7b's
+   shared attention (32 heads of 80, where 10 of 16 lanes work), B = 4,
+   S_max 512, lengths [512, 1, 300, 77], bf16 and fp32, against their
+   plain versions and timed beside SDPA; the reduced mamba2-130m and
+   zamba2-2.7b on the continuous, paged and batch-1 engines, card
+   against CPU (tokens equal, first-token logits within 1e-3);
+   ``launch.serve`` serves mamba2-130m (24 layers, d_model 768, tied
+   embeddings) on the continuous, wave and paged engines and zamba2-2.7b
+   (54 Mamba2 layers, d_model 2560, 9 applications of the shared block)
+   on the continuous and paged engines, both at full width and depth on
+   phase 5's trace, each beside ``ContinuousEngine(batch_admit=False)``:
+   mamba2 launches no flash-decode kernel, zamba2 kernel 5 (6) 9 times
+   a decode step, and each paged engine's tokens equal the foil's
+   (whether the batched engines' do is printed, beside the gap between
+   a batched and a batch-1 prefill's logits); peak under 70 GiB; then
+   each model's 300-token prefill (3 SSD chunks of 128) against a
+   299-token prefill and one decode step, in fp32 within
+   ``SSM_CHUNK_TOL`` (the bf16 gap printed).
+
 ``python3 chip_smoke.py --dist-slots N`` builds and runs phase 9 alone
 with N slots (how its slot count was sized), ``--swarm-only`` phase 10
-alone, ``--moe-only`` phase 11 alone; none prints a result.
+alone, ``--moe-only`` phase 11 alone, ``--ssm-only`` phase 12 alone;
+none prints a result.
 
 The last three lines are the kernels (JSON), the card (name, power
 limit) and the result.
@@ -238,6 +258,35 @@ MOE_TRAIN = {"arch": "deepseek-moe-16b", "n_layers": 2, "batch": 2,
 MOE_FD_CASES = [("deepseek-moe-16b", 4, 512, 16, 1, 128, [512, 1, 300, 77]),
                 ("phi-3-vision-4.2b", 4, 512, 32, 1, 96, [512, 1, 300, 77]),
                 ("phi-3-vision-4.2b decode", 2, 1024, 32, 1, 96, [641, 656])]
+# phase 12: the SSM and hybrid families at full width and depth on phase
+# 5's serving trace: mamba2-130m (24 Mamba2 layers, d_model 768, tied
+# embeddings, attention-free) and zamba2-2.7b (54 Mamba2 layers, d_model
+# 2560, the shared attention + MLP block after every 6th: 9 applications,
+# 32 heads of 80)
+SSM_SERVE = {arch: ["--arch", arch, "--slots", "4", "--requests", "8",
+                    "--prompt-len", "64", "--max-new", "32", "--max-len",
+                    "512", "--block-size", "16"]
+             for arch in ("mamba2-130m", "zamba2-2.7b")}
+SSM_ENGINES = {"mamba2-130m": ("continuous", "wave", "paged"),
+               "zamba2-2.7b": ("continuous", "paged")}
+# kernels 5 and 6 at zamba2's shared attention: 32 heads of 80 (dh / 8 =
+# 10 of the template's 16 lanes busy), bf16 and fp32
+SSM_FD_CASES = [("zamba2-2.7b", 4, 512, 32, 1, 80, [512, 1, 300, 77])]
+# a prefill of 300 tokens (3 SSD chunks of 128) against one of 299 and a
+# decode step, B = 2, at full width and depth, gated in fp32 at the
+# reference test's tolerance (``test_mamba2_decode_continues_prefill``:
+# 2e-3); the two paths differ there only in fp32 sums (the chunked dual
+# form against the recurrence, prefill attention against the kernel).
+# The same gate holds the batched prefill of the trace's first 4
+# prompts against each prompt's batch-1 prefill (``prefill_gap``) in
+# fp32: they differ only in how the card's products round 256 rows
+# against 64.
+# In bf16 the gap is measured and printed, not gated, at the full depth
+# and at cut depths: the projections' bf16 rounding (a (1, D) row
+# against an (S, D) product) compounds from layer to layer
+SSM_CHUNKS = {"batch": 2, "prompt_len": 300, "max_len": 512, "seed": 0}
+SSM_CHUNK_TOL = 2e-3
+SSM_CHUNK_DEPTHS = {"mamba2-130m": (8, 24), "zamba2-2.7b": (6, 18, 54)}
 # (B, S_max, Hk, G, dh, lengths): INTELLECT-1's attention at a long cache,
 # where the bytes rather than the latency chain should set the pace
 FD_LONG = (4, 8192, 8, 4, 128, [8192, 4096, 2048, 1])
@@ -2736,22 +2785,23 @@ def swarm_serve_phase() -> dict:
 # -- phase 11: the MoE and VLM families ---------------------------------------
 
 
-def moe_flash_decode() -> dict:
-    """Kernels 5 and 6 at ``MOE_FD_CASES`` (bf16), and at the MoE swarm's
-    B = 1 (``b1_flash_decode`` at 16 heads of 128): each against its
-    plain version within ``TOL``, a repeat bitwise equal, kernel 6 on a
-    permuted pool of 16-cell blocks bitwise equal to kernel 5 on the
-    gathered view; timed beside SDPA (kernel 6: the gather + SDPA),
-    bound from the bytes."""
+def hold_flash_decode(cases, seed: int,
+                      dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Kernels 5 and 6 at ``cases`` ((label, B, S_max, Hk, G, dh,
+    lengths)) in ``dtype``: each against its plain version within
+    ``TOL``, a repeat bitwise equal, kernel 6 on a permuted pool of
+    16-cell blocks bitwise equal to kernel 5 on the gathered view; timed
+    beside SDPA with ``enable_gqa`` (kernel 6: the gather + SDPA), bound
+    from the bytes. Returns {kernel name: {label: entry}}."""
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.models.attention import (PagedKVCache, decode_valid_mask,
                                               paged_view)
     out = {"flash_decode": {}, "flash_decode_paged": {}}
-    for i, (label, b, s_max, hk, g, dh, lengths) in enumerate(MOE_FD_CASES):
-        q, k, v, length = flash_decode_inputs(b, s_max, hk, g, dh,
-                                              torch.bfloat16, lengths,
-                                              seed=60 + i)
-        kp, vp, table = paged_pool(k, v, length, 16, seed=60 + i)
+    dname = str(dtype).removeprefix("torch.")
+    for i, (label, b, s_max, hk, g, dh, lengths) in enumerate(cases):
+        q, k, v, length = flash_decode_inputs(b, s_max, hk, g, dh, dtype,
+                                              lengths, seed=seed + i)
+        kp, vp, table = paged_pool(k, v, length, 16, seed=seed + i)
         dense = fd.flash_decode(q, k, v, length)
         paged = fd.flash_decode_paged(q, kp, vp, table, length)
         torch.cuda.synchronize()
@@ -2762,13 +2812,13 @@ def moe_flash_decode() -> dict:
         valid = decode_valid_mask(length, s_max, None)[:, None, None, :]
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         shape = {"B": b, "S_max": s_max, "Hk": hk, "G": g, "dh": dh,
-                 "dtype": "bfloat16", "lengths": lengths}
+                 "dtype": dname, "lengths": lengths}
         for name, got, run, plain, library, extra in (
                 ("flash_decode", dense,
                  lambda: fd.flash_decode(q, k, v, length),
                  lambda: fd.flash_decode_torch(q, k, v, length),
                  lambda: torch.nn.functional.scaled_dot_product_attention(
-                     qt, kt, vt, attn_mask=valid), 0),
+                     qt, kt, vt, attn_mask=valid, enable_gqa=True), 0),
                 ("flash_decode_paged", paged,
                  lambda: fd.flash_decode_paged(q, kp, vp, table, length),
                  lambda: fd.flash_decode_paged_torch(q, kp, vp, table,
@@ -2777,9 +2827,9 @@ def moe_flash_decode() -> dict:
                      qt, paged_view(PagedKVCache(kp, vp, table, length))
                      .k.transpose(1, 2), paged_view(PagedKVCache(
                          kp, vp, table, length)).v.transpose(1, 2),
-                     attn_mask=valid), table.numel() * 4)):
+                     attn_mask=valid, enable_gqa=True), table.numel() * 4)):
             err = check_repeat_and_close(f"{name} {label}", got, run(),
-                                         plain(), torch.bfloat16)
+                                         plain(), dtype)
             bound, bound_by = flash_decode_bound(q, k, length, None,
                                                  extra_bytes=extra)
             e = {"ms": time_ms(run), "plain_ms": time_ms(plain),
@@ -2787,14 +2837,22 @@ def moe_flash_decode() -> dict:
                  "library_ms": time_ms(library), "max_abs_err": err,
                  "shape": shape}
             out[name][label] = e
-            log(f"kernel {name} {label} (Hq=Hk={hk}, dh={dh}, B={b}, "
-                f"S_max={s_max}, lengths {lengths}): max|err|={err:.3g} "
-                f"(tol {TOL[torch.bfloat16]}), repeat bitwise; "
+            log(f"kernel {name} {label} (Hq={hk * g}, Hk={hk}, dh={dh}, "
+                f"B={b}, S_max={s_max}, lengths {lengths}, {dname}): "
+                f"max|err|={err:.3g} (tol {TOL[dtype]}), repeat bitwise; "
                 f"{e['ms']:.5f} ms, bound {bound:.6f} ms ({bound_by}), plain "
                 f"{e['plain_ms']:.5f} ms, {'gather+' if extra else ''}SDPA "
                 f"{e['library_ms']:.5f} ms")
         del q, k, v, kp, vp, view, kt, vt
     torch.cuda.empty_cache()
+    return out
+
+
+def moe_flash_decode() -> dict:
+    """Kernels 5 and 6 at ``MOE_FD_CASES`` (bf16, ``hold_flash_decode``),
+    and at the MoE swarm's B = 1 (``b1_flash_decode`` at 16 heads of
+    128)."""
+    out = hold_flash_decode(MOE_FD_CASES, 60)
     b1 = b1_flash_decode("deepseek-moe-16b swarm", 16, 1, 128, seed=70)
     for name, e in b1.items():
         out[name]["deepseek-moe-16b swarm B=1"] = e
@@ -2804,8 +2862,11 @@ def moe_flash_decode() -> dict:
 def meta_param_count(cfg) -> int:
     """Parameters of ``cfg``'s tree, counted on the ``meta`` device."""
     from repro_torch.core.sync_engine import leaves
+    from repro_torch.models import hybrid
     from repro_torch.models import transformer as tf
-    return sum(t.numel() for t in leaves(tf.alloc_lm(cfg, device="meta")))
+    alloc = hybrid.alloc_hybrid if cfg.family in ("ssm", "hybrid") \
+        else tf.alloc_lm
+    return sum(t.numel() for t in leaves(alloc(cfg, device="meta")))
 
 
 def moe_serve() -> dict:
@@ -3104,6 +3165,296 @@ def moe_vlm_phase() -> dict:
     return out
 
 
+# -- phase 12: the SSM and hybrid families -----------------------------------
+
+
+def ssm_flash_decode() -> dict:
+    """Kernels 5 and 6 at zamba2-2.7b's decode shape (``SSM_FD_CASES``:
+    32 heads of 80, B = 4, S_max 512, lengths [512, 1, 300, 77]) in bf16
+    and in fp32, through ``hold_flash_decode``."""
+    out = hold_flash_decode(SSM_FD_CASES, 80)
+    fp32 = hold_flash_decode([(f"{c[0]} fp32",) + c[1:]
+                              for c in SSM_FD_CASES], 90, torch.float32)
+    for name in out:
+        out[name].update(fp32[name])
+    return out
+
+
+def check_reduced_ssm() -> dict:
+    """The reduced mamba2-130m and zamba2-2.7b (fp32, SSD chunks of 16)
+    on the continuous and paged engines, card against CPU on 6 prompts
+    of 3-39 tokens (up to three chunks), 8 new tokens: greedy tokens
+    equal, each request's first-token logits within 1e-3 (as the reduced
+    INTELLECT-1's), and on the card the paged tokens equal the
+    continuous engine's with batch-1 admission."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+    from repro_torch.serving.engine import Request, make_engine
+    out = {}
+    for arch in ("mamba2-130m", "zamba2-2.7b"):
+        cfg = get_config(arch).reduced()
+        params = get_model(cfg, "cpu").init(0)
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(2, cfg.vocab, size=int(rng.integers(3, 40)))
+                   .astype(np.int32) for _ in range(6)]
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            for kind, kw in (("continuous", {}), ("paged", {}),
+                             ("foil", {"batch_admit": False})):
+                eng = make_engine("continuous" if kind == "foil" else kind,
+                                  get_model(cfg, dev), to_device(params, dev),
+                                  batch_slots=3, max_len=64, decode_chunk=4,
+                                  **kw)
+                firsts, admit = {}, eng._admit_state
+
+                def record(req, slot, logits, firsts=firsts, admit=admit):
+                    firsts[req.rid] = logits.float().cpu()
+                    admit(req, slot, logits)
+                eng._admit_state = record
+                reqs = [Request(i, p, max_new_tokens=8)
+                        for i, p in enumerate(prompts)]
+                for r in reqs:
+                    eng.submit(r)
+                eng.run_until_drained()
+                del eng._admit_state
+                if not all(r.done for r in reqs):
+                    raise AssertionError(f"reduced {arch} {kind} {dev}: a "
+                                         "request did not finish")
+                runs[(dev, kind)] = ([r.out_tokens for r in reqs], firsts)
+        worst = 0.0
+        for kind in ("continuous", "paged", "foil"):
+            (tc, fc), (tg, fg) = runs[("cpu", kind)], runs[("cuda", kind)]
+            if tg != tc:
+                raise AssertionError(f"reduced {arch} {kind} GPU vs CPU "
+                                     f"tokens: {tg} vs {tc}")
+            worst = max(worst, max((fg[r] - fc[r]).abs().max().item()
+                                   for r in fc))
+        if worst > 1e-3:
+            raise AssertionError(f"reduced {arch} GPU vs CPU: first-token "
+                                 f"logits max|err| {worst}")
+        if runs[("cuda", "paged")][0] != runs[("cuda", "foil")][0]:
+            raise AssertionError(f"reduced {arch}: paged tokens differ from "
+                                 "the batch_admit=False foil's on the card")
+        log(f"reduced {arch} fp32 continuous/paged/foil GPU vs CPU: tokens "
+            f"equal, first-token max|logit err|={worst:.3g} (tol 1e-3); "
+            f"paged == foil on the card")
+        out[arch] = worst
+    return out
+
+
+def ssm_serve(arch: str) -> dict:
+    """``arch`` at full width and depth through ``launch.serve``
+    (``SSM_SERVE``) on each engine of ``SSM_ENGINES``, then
+    ``ContinuousEngine(batch_admit=False)`` (the foil) on the same trace
+    and weights. Gates: every request done, tokens in the vocabulary;
+    kernel 5 launched n_apps (0 for mamba2, 9 for zamba2) times a decode
+    step on the dense engines and kernel 6 as often on the paged one,
+    the other never; the paged tokens equal the foil's (both admit one
+    request a prefill); peak memory under 70 GiB. Whether the batched
+    engines' tokens equal the foil's is printed, with the largest gap
+    between a batched and a batch-1 prefill's first-token logits
+    (``prefill_gap``): on the card a (4 x 64)-row product rounds
+    otherwise than a 64-row one."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import hybrid
+    from repro_torch.models.registry import get_model
+    from repro_torch.serving.engine import make_engine
+    argv = SSM_SERVE[arch]
+    args = serve_mod.build_parser().parse_args(argv)
+    cfg = get_config(arch)
+    n_meta = meta_param_count(cfg)
+    norms = (cfg.n_layers + 1 + 2 * hybrid.n_apps(cfg)) * cfg.d_model
+    if n_meta != cfg.param_count() + norms:
+        raise AssertionError(f"{arch}: {n_meta} parameters on meta, the "
+                             f"config counts {cfg.param_count()} + the "
+                             "norms")
+    apps = hybrid.n_apps(cfg)
+    runs = {}
+    torch.cuda.reset_peak_memory_stats()
+    for engine in SSM_ENGINES[arch] + ("foil",):
+        reset_decode_counts()
+        if engine == "foil":
+            model = get_model(cfg, "cuda")
+            params = model.init(args.seed)
+            eng = make_engine("continuous", model, params, batch_admit=False,
+                              **serve_mod.engine_kwargs(args))
+            reqs = serve_mod.make_requests(args, cfg.vocab)
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_drained()
+            s = dict(eng.perf_summary(), done=[r.done for r in reqs],
+                     outputs=[list(r.out_tokens) for r in reqs],
+                     padded_vocab=cfg.padded_vocab)
+            gap = prefill_gap(model, params, reqs[:args.slots])
+            del eng, params, model, reqs
+        else:
+            s = serve_mod.main(argv + ["--engine", engine])
+        counts = decode_counts()
+        torch.cuda.synchronize()
+        if not all(s["done"]) or s["requests"] != 8:
+            raise AssertionError(f"{arch} {engine}: a request did not finish")
+        if not all(0 <= t < s["padded_vocab"]
+                   for o in s["outputs"] for t in o):
+            raise AssertionError(f"{arch} {engine}: token outside the "
+                                 "vocabulary")
+        kernel = "flash_decode_paged" if engine == "paged" else "flash_decode"
+        s["launches"] = check_launches(f"{arch} {engine}", counts, kernel,
+                                       apps * s["decode_steps"])
+        s["peak_bytes"] = torch.cuda.max_memory_allocated()
+        extra = (f" blocks_peak={s['blocks_peak']}/{s['pool_blocks']}"
+                 if engine == "paged" else "")
+        log(f"{arch} {engine}: tok/s={s['tokens_per_s']:.1f} "
+            f"p50={s['latency_p50_s'] * 1e3:.1f}ms "
+            f"p95={s['latency_p95_s'] * 1e3:.1f}ms "
+            f"decode_steps={s['decode_steps']} launches={s['launches']} "
+            f"({apps} a step) tokens={s['tokens_out']} "
+            f"wall={s['wall_s']:.3f}s peak_mem="
+            f"{s['peak_bytes'] / 2**30:.2f}GiB{extra}")
+        runs[engine] = s
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = {e: runs[e]["outputs"] == runs["foil"]["outputs"]
+            for e in SSM_ENGINES[arch]}
+    if "wave" in runs:
+        same["continuous == wave"] = (runs["continuous"]["outputs"]
+                                      == runs["wave"]["outputs"])
+    peak = max(r["peak_bytes"] for r in runs.values())
+    log(f"{arch}: parameters {n_meta} (meta device); tokens equal to the "
+        f"foil's: {same} (gated: paged); batched vs batch-1 prefill "
+        f"first-token max|logit gap| {gap:.4g}; peak_mem="
+        f"{peak / 2**30:.2f}GiB")
+    if not same["paged"]:
+        raise AssertionError(f"{arch}: paged greedy tokens differ from "
+                             "ContinuousEngine(batch_admit=False)'s")
+    if peak >= PEAK_LIMIT_BYTES:
+        raise AssertionError(f"{arch} serve peak {peak / 2**30:.2f} GiB")
+    keys = ("tokens_per_s", "latency_p50_s", "latency_p95_s",
+            "decode_steps", "tokens_out", "wall_s", "launches", "peak_bytes")
+    out = {e: {k: r[k] for k in keys} for e, r in runs.items()}
+    out.update(params=n_meta, equal_to_foil=same, prefill_gap=gap,
+               peak_bytes=peak)
+    return out
+
+
+def prefill_gap(model, params, reqs) -> float:
+    """Largest |gap| between the first-token logits of ``reqs`` prefilled
+    as one batch (the continuous engine's admission: right-padded to the
+    longest prompt's bucket) and each prefilled alone (the foil's)."""
+    import numpy as np
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.serving.engine import bucket_len
+    plen = np.array([len(r.prompt) for r in reqs], np.int32)
+
+    def prefill(rows, width):
+        toks = np.zeros((len(rows), width), np.int32)
+        for i, r in enumerate(rows):
+            toks[i, :len(r.prompt)] = r.prompt
+        logits, _ = model.prefill(
+            params, {"tokens": torch.from_numpy(toks).cuda(),
+                     "prompt_len": torch.tensor(
+                         [len(r.prompt) for r in rows], dtype=torch.int32,
+                         device="cuda")},
+            model.init_cache(len(rows), ShapeConfig("gap", "decode", 512,
+                                                    len(rows))))
+        return logits.float()
+    batched = prefill(reqs, bucket_len(int(plen.max())))
+    return max((batched[i] - prefill([r], bucket_len(len(r.prompt)))[0])
+               .abs().max().item() for i, r in enumerate(reqs))
+
+
+def ssm_chunks(arch: str) -> dict:
+    """``arch`` at full width: a prefill of ``SSM_CHUNKS``' 300 random
+    tokens (3 SSD chunks of 128) against a prefill of the first 299 and
+    one decode step of the last, in fp32 at full depth (gated: the
+    decode's logits within ``SSM_CHUNK_TOL`` of the long prefill's) and
+    in the config's bf16 at each depth of ``SSM_CHUNK_DEPTHS`` (the gap
+    printed); kernel 5 launched n_apps times by each step. The card's
+    counterpart of the reference's
+    ``test_mamba2_decode_continues_prefill``. In fp32 the serving
+    trace's first 4 prompts prefilled as a batch must also give each
+    one's batch-1 first-token logits within ``SSM_CHUNK_TOL``."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import hybrid
+    from repro_torch.models.registry import get_model
+    c = SSM_CHUNKS
+    b, n = c["batch"], c["prompt_len"]
+    out, launches = {}, 0
+    full_depth = get_config(arch).n_layers
+    for dtype, depth in [("float32", full_depth)] + [
+            ("bfloat16", d) for d in SSM_CHUNK_DEPTHS[arch]]:
+        cfg = dataclasses.replace(get_config(arch), dtype=dtype,
+                                  n_layers=depth)
+        model = get_model(cfg, "cuda")
+        params = model.init(c["seed"])
+        gen = torch.Generator(device="cuda").manual_seed(c["seed"])
+        toks = torch.randint(2, cfg.vocab, (b, n), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        shape = ShapeConfig("chunks", "decode", c["max_len"], b)
+        full, _ = model.prefill(params, {"tokens": toks},
+                                model.init_cache(b, shape))
+        _, cache = model.prefill(params, {"tokens": toks[:, :-1]},
+                                 model.init_cache(b, shape))
+        reset_decode_counts()
+        step, _ = model.decode(params, toks[:, -1:], cache)
+        torch.cuda.synchronize()
+        launches += check_launches(f"{arch} chunks {dtype} depth {depth}",
+                                   decode_counts(), "flash_decode",
+                                   hybrid.n_apps(cfg))
+        err = (step.float() - full.float()).abs().max().item()
+        scale = full.float().abs().max().item()
+        agree = int((step.argmax(-1) == full.argmax(-1)).sum())
+        gated = dtype == "float32"
+        if not math.isfinite(err) or (gated and err > SSM_CHUNK_TOL):
+            raise AssertionError(f"{arch} {dtype}: prefill {n - 1} + decode "
+                                 f"vs prefill {n}: max|logit err| {err} > "
+                                 f"{SSM_CHUNK_TOL}")
+        if gated:
+            args = serve_mod.build_parser().parse_args(SSM_SERVE[arch])
+            gap = prefill_gap(model, params, serve_mod.make_requests(
+                args, cfg.vocab)[:args.slots])
+            log(f"{arch} fp32: batched vs batch-1 prefill of the trace's "
+                f"first {args.slots} prompts, first-token max|logit gap| "
+                f"{gap:.4g} (tol {SSM_CHUNK_TOL})")
+            if not math.isfinite(gap) or gap > SSM_CHUNK_TOL:
+                raise AssertionError(f"{arch} fp32: batched prefill vs "
+                                     f"batch-1 gap {gap} > {SSM_CHUNK_TOL}")
+            out["prefill_gap_fp32"] = gap
+        log(f"{arch} multi-chunk prefill {dtype} depth {depth} ({n} "
+            f"tokens, {-(-n // cfg.ssm.chunk)} chunks of {cfg.ssm.chunk}, "
+            f"B={b}): prefill {n - 1} + 1 decode step vs prefill {n}: "
+            f"max|logit err| {err:.4g} "
+            f"({f'tol {SSM_CHUNK_TOL}' if gated else 'not gated'}; logits' "
+            f"max |value| {scale:.3g}), greedy agreement {agree}/{b}")
+        out[f"{dtype} depth {depth}"] = {"max_abs_err": err, "agree": agree}
+        del params, model, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
+def ssm_phase() -> dict:
+    """Phase 12: (a) kernels 5 and 6 at zamba2's 32 heads of 80, (b) the
+    reduced models card against CPU, then mamba2-130m and (c)
+    zamba2-2.7b served at full width and depth on every engine and the
+    foil, (d) each model's multi-chunk prefill against decode."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"kernels": ssm_flash_decode(), "reduced": check_reduced_ssm()}
+    for arch in SSM_SERVE:
+        out[arch] = {"serve": ssm_serve(arch), "chunks": ssm_chunks(arch)}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"ssm/hybrid phase: {out['wall_s']:.1f}s")
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dist-slots", type=int, default=None,
@@ -3115,6 +3466,9 @@ def main(argv=None) -> None:
                          "build), and print no result")
     ap.add_argument("--moe-only", action="store_true",
                     help="run only phase 11, the MoE and VLM families "
+                         "(after the build), and print no result")
+    ap.add_argument("--ssm-only", action="store_true",
+                    help="run only phase 12, the SSM and hybrid families "
                          "(after the build), and print no result")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
@@ -3135,6 +3489,10 @@ def main(argv=None) -> None:
     if args.moe_only:
         moe_vlm_phase()
         log(f"phase 11 alone passed in {time.perf_counter() - t0:.1f}s")
+        return
+    if args.ssm_only:
+        ssm_phase()
+        log(f"phase 12 alone passed in {time.perf_counter() - t0:.1f}s")
         return
     kernels = ([check_flash_decode()] + check_int8_codec()
                + [check_flash_decode_paged()])
@@ -3225,6 +3583,19 @@ def main(argv=None) -> None:
             entry["launches_moe"]["swarm_crash"] = \
                 moe["swarm"]["runs"][("dense", True)]["launches"]
             entry["launches_moe"]["vlm"] = moe["vlm"]["launches"]
+    del moe
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm = ssm_phase()
+    for entry, engine in ((kernels[0], "continuous"), (kernels[5], "paged")):
+        entry["ssm_shapes"] = ssm["kernels"][entry["name"]]
+        entry["launches_ssm"] = {
+            arch: ssm[arch]["serve"][engine]["launches"] for arch in SSM_SERVE}
+        if engine == "continuous":
+            entry["launches_ssm"]["zamba2-2.7b foil"] = \
+                ssm["zamba2-2.7b"]["serve"]["foil"]["launches"]
+            entry["launches_ssm"]["zamba2-2.7b chunks"] = \
+                ssm["zamba2-2.7b"]["chunks"]["launches"]
     log(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.attention import KVCache, PagedKVCache
+from repro_torch.models.ssm import SSMState
 
 
 def to_tensor(a, device="cuda", dtype: torch.dtype | None = None
@@ -36,13 +37,15 @@ def from_jax_params(tree, device="cuda", dtype: torch.dtype | None = None):
 
 
 def from_jax_cache(cache, device="cuda") -> dict:
-    """``repro`` cache ``{"scan": KVCache, "prefix": [KVCache, ...]}``
-    with numpy leaves (anything with ``k``, ``v`` and ``length``, plus
-    ``table`` for a ``PagedKVCache``) -> the port's cache on
-    ``device``, the dense prefix layers' caches included. A stacked
-    paged leaf's (L, B, nb) table, which the JAX package broadcasts over
-    layers, becomes the port's one (B, nb) table, which every leaf then
-    shares; the layers' and leaves' tables must agree."""
+    """``repro`` cache with numpy leaves -> the port's cache on
+    ``device``: a transformer's ``{"scan": KVCache, "prefix": [KVCache,
+    ...]}`` (KV leaves are anything with ``k``, ``v`` and ``length``,
+    plus ``table`` for a ``PagedKVCache``), the dense prefix layers'
+    caches included, or an SSM / hybrid's ``{"ssm": SSMState, "kv":
+    KVCache or None}`` (the SSMState's four stacked fields in order). A
+    stacked paged leaf's (L, B, nb) table, which the JAX package
+    broadcasts over layers, becomes the port's one (B, nb) table, which
+    every leaf then shares; the layers' and leaves' tables must agree."""
     shared = []
 
     def one(c):
@@ -63,5 +66,9 @@ def from_jax_cache(cache, device="cuda") -> dict:
             table = shared[0]
         shared.append(table)
         return PagedKVCache(k, v, table, length)
+    if "ssm" in cache:
+        return {"ssm": SSMState(*(to_tensor(a, device)
+                                  for a in cache["ssm"])),
+                "kv": None if cache["kv"] is None else one(cache["kv"])}
     return {"scan": one(cache["scan"]),
             "prefix": [one(c) for c in cache["prefix"]]}

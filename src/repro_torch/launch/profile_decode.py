@@ -20,6 +20,11 @@ once at the model's attention shape, random q/K/V and the decode's
 cache length, and the median and largest time of each phase over the
 blocks that reach it go into the JSON line (``kernel_trace_us``). Needs
 a CUDA device.
+
+The SSM and hybrid families profile alike: ``--arch zamba2-2.7b``
+(54 Mamba2 layers and 9 shared-attention applications a step, the
+flash-decode kernel at 32 heads of 80) and ``--arch mamba2-130m``
+(attention-free: no flash-decode launch, no kernel trace).
 """
 from __future__ import annotations
 
@@ -55,6 +60,9 @@ def main(argv=None) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_decode needs a CUDA device")
     cfg = get_config(args.arch)
+    if args.kernel_trace and cfg.family == "ssm":
+        raise ValueError(f"{cfg.name} is attention-free: no flash-decode "
+                         "launch to trace")
     model = get_model(cfg, "cuda")
     params = model.init(args.seed)
     shape = ShapeConfig("profile", "decode", args.max_len, args.slots)
@@ -159,21 +167,27 @@ def _kernel_trace(cfg, args, flash_decode) -> dict:
 def _paged_copy(model, cache, slots, shape, blk):
     """The dense cache's contents in a paged pool, every KV leaf (the
     dense prefix layers' too): slot b's virtual block i is pool block
-    1 + b * nb + i (block 0 is trash)."""
+    1 + b * nb + i (block 0 is trash); state leaves (an SSM's) copied
+    as they are."""
     import torch
 
-    from repro_torch.models.attention import kv_leaves
+    from repro_torch.models.attention import kv_leaves, state_leaves
     from repro_torch.serving.paging import build_paged_cache
     paged, nb, _ = build_paged_cache(model, slots, shape, block_size=blk)
-    for dense, pool in zip(kv_leaves(cache), kv_leaves(paged), strict=True):
+    pools = kv_leaves(paged)
+    for dense, pool in zip(kv_leaves(cache), pools, strict=True):
         lead = pool.k.shape[:-4]
         cells = (slots, nb * blk) + tuple(pool.k.shape[-2:])
         pool.k[..., 1:, :, :, :].view(*lead, *cells).copy_(dense.k)
         pool.v[..., 1:, :, :, :].view(*lead, *cells).copy_(dense.v)
         pool.length.copy_(dense.length)
-    paged["scan"].table.copy_(torch.arange(
-        1, slots * nb + 1, dtype=torch.int32,
-        device=paged["scan"].table.device).view(slots, nb))
+    for dense, same in zip(state_leaves(cache), state_leaves(paged),
+                           strict=True):
+        same.copy_(dense)
+    if pools:                       # one table, shared by every KV leaf
+        pools[0].table.copy_(torch.arange(
+            1, slots * nb + 1, dtype=torch.int32,
+            device=pools[0].table.device).view(slots, nb))
     return paged
 
 

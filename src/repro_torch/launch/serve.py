@@ -38,6 +38,16 @@ is one stage (``dense0`` rides with it), two replicas, one crashed:
 The single-host reference is ``ContinuousEngine(batch_slots=1,
 batch_admit=False)``: a chain runs every request at B = 1, and on the
 card a matmul row's bits may depend on how many rows share the call.
+
+The SSM and hybrid families serve on every engine: ``--arch
+mamba2-130m`` (attention-free: no flash-decode launch; the paged engine
+has no KV to page and admits as the dense one) and ``zamba2-2.7b`` (the
+shared attention block's K/V, 32 heads of 80, dense or paged through
+the flash-decode kernels). Neither has the stage seam, so ``--swarm``
+raises ``ValueError``, as in the JAX package:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+      --reduced --engine paged --device cpu
 """
 from __future__ import annotations
 
@@ -56,6 +66,8 @@ def _run_swarm(args, cfg, model, params) -> dict:
     from repro_torch.serving import StageServer, SwarmRouter, publish_stages
     from repro_torch.serving.engine import ContinuousEngine
 
+    # the stage seam first: the families without one raise ValueError
+    stages = registry.make_stages(cfg, args.stages, args.device)
     reqs = make_requests(args, cfg.vocab)
     prompts = [r.prompt.tolist() for r in reqs]
     engine = ContinuousEngine(model, params, batch_slots=1,
@@ -66,7 +78,6 @@ def _run_swarm(args, cfg, model, params) -> dict:
     engine.run_until_drained()
     reference = [list(r.out_tokens) for r in reqs]
 
-    stages = registry.make_stages(cfg, args.stages, args.device)
     servers, pool, gossip, seed_peer = {}, None, None, None
     with tempfile.TemporaryDirectory() as td:
         root = Path(td)

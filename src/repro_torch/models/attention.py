@@ -78,12 +78,36 @@ class PagedKVCache:
 
 
 def kv_leaves(cache: dict) -> list:
-    """The KV caches of a model's cache tree ``{"scan": stacked,
-    "prefix": [unstacked, ...]}``: the stack first, then the dense
-    prefix layers'. Index a leaf's slot as ``k[..., slot, :, :, :]`` and
+    """The KV caches of a model's cache tree: for a transformer's
+    ``{"scan": stacked, "prefix": [unstacked, ...]}`` the stack first,
+    then the dense prefix layers'; for an SSM / hybrid's ``{"ssm",
+    "kv"}`` the shared attention's stacked cache, or none for a pure
+    SSM. Index a leaf's slot as ``k[..., slot, :, :, :]`` and
     ``length[..., slot]``: that holds for a stacked and an unstacked
     leaf alike."""
+    if "kv" in cache:
+        return [] if cache["kv"] is None else [cache["kv"]]
     return [cache["scan"]] + list(cache["prefix"])
+
+
+def state_leaves(cache: dict) -> list:
+    """The per-slot dense leaves of a cache tree that are not KV: an SSM
+    / hybrid's stacked state and conv rings (slot axis 1: ``t[:,
+    slot]``); none for a transformer. They stay dense in a paged
+    cache."""
+    return list(cache["ssm"]) if "ssm" in cache else []
+
+
+def map_cache(cache: dict, kv_fn, state_fn) -> dict:
+    """The cache tree with every KV leaf replaced by ``kv_fn(leaf)`` and
+    every state leaf (``state_leaves``) by ``state_fn(tensor)``, its
+    structure kept."""
+    if "kv" in cache:
+        ssm = cache["ssm"]
+        return {"ssm": type(ssm)(*(state_fn(t) for t in ssm)),
+                "kv": None if cache["kv"] is None else kv_fn(cache["kv"])}
+    return {"scan": kv_fn(cache["scan"]),
+            "prefix": [kv_fn(c) for c in cache["prefix"]]}
 
 
 def paged_view(cache: PagedKVCache) -> KVCache:

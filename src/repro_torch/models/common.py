@@ -30,6 +30,14 @@ def normal_(out: torch.Tensor, generator: torch.Generator, *,
     return out
 
 
+def tree_index(tree, i: int):
+    """Row ``i`` of every tensor of a nested dict (views): one layer of
+    a stacked layer tree."""
+    if isinstance(tree, dict):
+        return {k: tree_index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()

@@ -1,6 +1,6 @@
 """Model registry (port of ``repro.models.registry``): a family-uniform
 interface over the model zoo. The port has the transformer families
-(dense, MoE, VLM) so far:
+(dense, MoE, VLM) and the SSM and hybrid families so far:
 
   * ``init(seed) -> params``
   * ``loss(params, batch) -> (loss, metrics)`` (differentiable)
@@ -9,7 +9,8 @@ interface over the model zoo. The port has the transformer families
   * ``decode(params, token, cache) -> (logits, cache)``
   * ``prefill_extend(params, batch, cache) -> (logits, cache)``: one
     chunked-prefill segment (batch keys ``tokens``, ``start``,
-    ``seg_len``); None for sliding-window models
+    ``seg_len``); None for sliding-window models and for the SSM and
+    hybrid families (a state fold has no resume offset)
 
 and the pipeline-stage partition of swarm serving (``make_stages``,
 ``stage_param_specs``). Every ``ModelDef`` and ``StageDef`` is bound to
@@ -23,7 +24,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,16 +70,42 @@ def _lm_def(cfg: ArchConfig, device: torch.device) -> ModelDef:
                                     else prefill_extend))
 
 
+def _hybrid_def(cfg: ArchConfig, device: torch.device) -> ModelDef:
+    """The SSM (``attn_every=None``) and hybrid families."""
+    def init(seed: int):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return hybrid.init_hybrid(cfg, gen, device=device)
+
+    def loss(params, batch):
+        return hybrid.loss_fn(cfg, params, batch)
+
+    def init_cache(batch_size, shape: ShapeConfig, device=device):
+        # the shared attention's cache holds the full context
+        return hybrid.init_cache(cfg, batch_size, shape.seq_len,
+                                 device=device)
+
+    def prefill(params, batch, cache):
+        return hybrid.prefill(cfg, params, batch["tokens"], cache,
+                              prompt_len=batch.get("prompt_len"))
+
+    def decode(params, token, cache):
+        return hybrid.decode_step(cfg, params, token, cache)
+
+    return ModelDef(cfg, device, init, loss, init_cache, prefill, decode)
+
+
 def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "moe", "vlm"):
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-            "port has the dense, MoE and VLM families; SSM and hybrid "
-            "come in a later slice, then enc-dec")
+            "port has the dense, MoE, VLM, SSM and hybrid families; "
+            "enc-dec comes in a later slice")
 
 
 def get_model(cfg: ArchConfig, device="cuda") -> ModelDef:
     _check_ported(cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        return _hybrid_def(cfg, torch.device(device))
     return _lm_def(cfg, torch.device(device))
 
 

@@ -104,15 +104,9 @@ def init_lm(cfg, generator: torch.Generator, *, device="cuda") -> dict:
     return params
 
 
-def _index(tree, i: int):
-    if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
-
-
 def layer_params(params: dict, i: int) -> dict:
     """Layer ``i``'s views of the stacked layer tensors."""
-    return _index(params["layers"], i)
+    return common.tree_index(params["layers"], i)
 
 
 # -- blocks -------------------------------------------------------------------

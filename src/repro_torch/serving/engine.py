@@ -121,6 +121,14 @@ def sample_tokens(logits: torch.Tensor, temps: torch.Tensor,
     return torch.where(temps > 0, sampled, greedy).to(torch.int32)
 
 
+def copy_state_rows(cache: dict, sub: dict, slot: int, row: int) -> None:
+    """Row ``row`` of every state leaf of ``sub`` (an SSM's states and
+    conv rings, slot axis 1) into ``slot`` of ``cache``'s, in place."""
+    for big, small in zip(attn.state_leaves(cache), attn.state_leaves(sub),
+                          strict=True):
+        big[:, slot] = small[:, row]
+
+
 def request_generator(seed: int, rid: int, device) -> torch.Generator:
     """The sampling stream of request ``rid`` under engine ``seed``."""
     mixed = np.random.SeedSequence([seed, rid]).generate_state(1, np.uint64)
@@ -172,9 +180,14 @@ class _EngineBase:
         return max(min(bucket_len(n), self.max_len), n)
 
     def _budget(self, req: Request) -> int:
-        """Total tokens this request may emit (cache-capacity-clamped;
-        SWA rings wrap, so no cap there)."""
-        if self.cfg.sliding_window is not None:
+        """Total tokens this request may emit (cache-capacity-clamped
+        for non-rolling attention caches; SSM state is O(1) and SWA
+        rings wrap, so no cap there)."""
+        cfg = self.cfg
+        capless = (cfg.sliding_window is not None
+                   or (cfg.family in ("ssm", "hybrid")
+                       and not cfg.attn_every))
+        if capless:
             return max(1, req.max_new_tokens)
         return max(1, min(req.max_new_tokens,
                           self.max_len - len(req.prompt)))
@@ -463,14 +476,16 @@ class ContinuousEngine(_EngineBase):
 
     def _install(self, req: Request, slot: int, sub, row: int,
                  logits: torch.Tensor) -> None:
-        """Copy row ``row`` of every KV cache of the prefilled ``sub``
-        (the stack and the dense prefix layers') into ``slot``, then
-        reset the slot's state (``_admit_state``)."""
+        """Copy row ``row`` of every cache leaf of the prefilled ``sub``
+        (the KV stack and the dense prefix layers', an SSM's states and
+        conv rings) into ``slot``, then reset the slot's state
+        (``_admit_state``)."""
         for big, small in zip(attn.kv_leaves(self.cache),
                               attn.kv_leaves(sub), strict=True):
             big.k[..., slot, :, :, :] = small.k[..., row, :, :, :]
             big.v[..., slot, :, :, :] = small.v[..., row, :, :, :]
             big.length[..., slot] = small.length[..., row]
+        copy_state_rows(self.cache, sub, slot, row)
         self._admit_state(req, slot, logits)
 
     def _admit_state(self, req: Request, slot: int,

@@ -30,6 +30,12 @@ it through per-slot block tables:
   dense prefill (``capacity_blocks`` past ``max_len``), resumes through
   ``model.prefill_extend`` segments that write straight into the pool.
 
+* **SSM and hybrid models**: a hybrid pages its shared attention's K/V;
+  its SSM states and conv rings stay dense per slot and are copied into
+  the slot at admission. A pure SSM has no KV leaf, so admission
+  degenerates to the dense batch-1 path. Neither has a prefix index or
+  chunked prefill: a state fold has no resume offset.
+
 Unlike the JAX package, every device write (pagination of a scratch
 prefill, the fork, the extend segments, the tables) goes IN PLACE into
 the shared pool tensors. The dense engine stays the bit-identity foil:
@@ -45,7 +51,8 @@ import numpy as np
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.serving.engine import ContinuousEngine, Request
+from repro_torch.serving.engine import (ContinuousEngine, Request,
+                                        copy_state_rows)
 
 _HASH_ROOT = b"repro-paged-prefix-v1"
 
@@ -231,7 +238,8 @@ def build_paged_cache(model, slots: int, shape, *, block_size: int,
     every ``KVCache`` of the model's cache tree replaced by a
     ``PagedKVCache`` over a shared physical pool, on the model's device
     (the template is the ``meta``-device cache, so the dense cache is
-    never allocated). Returns (cache, nb, n_blocks); see
+    never allocated); an SSM's states and conv rings stay dense per
+    slot. Returns (cache, nb, n_blocks); see
     ``paged_cache_from_template``."""
     template = model.init_cache(slots, shape, device="meta")
     return paged_cache_from_template(
@@ -245,12 +253,15 @@ def paged_cache_from_template(template, *, slots: int, block_size: int,
                               capacity_blocks: int | None = None,
                               rolling: bool = False, device="cuda"):
     """Core of :func:`build_paged_cache` over a cache template (a
-    ``{"scan": KVCache, "prefix": [...]}`` tree, best on the ``meta``
-    device); the swarm stage servers build theirs from
-    ``StageDef.init_cache``. A stacked (L, B, S, Hk, dh) leaf becomes a
-    pool k/v (L, n_blocks, block_size, Hk, dh) in the leaf's dtype, one
-    (slots, nb) table of -1 that every layer shares and (L, slots)
-    lengths; an unstacked leaf the same without L.
+    ``{"scan": KVCache, "prefix": [...]}`` or ``{"ssm", "kv"}`` tree,
+    best on the ``meta`` device); the swarm stage servers build theirs
+    from ``StageDef.init_cache``. A stacked (L, B, S, Hk, dh) leaf
+    becomes a pool k/v (L, n_blocks, block_size, Hk, dh) in the leaf's
+    dtype, one (slots, nb) table of -1 that every layer shares and (L,
+    slots) lengths; an unstacked leaf the same without L. State leaves
+    (SSM states, conv rings) stay dense per slot: they are O(1) in the
+    sequence length, and paging buys nothing. A pure SSM has no KV leaf:
+    nb = 0.
 
     Every leaf (the stack and the dense prefix layers') shares the ONE
     table tensor, as the JAX package shares one table across its KV
@@ -278,10 +289,6 @@ def paged_cache_from_template(template, *, slots: int, block_size: int,
     table = torch.full((slots, nb), -1, dtype=torch.int32, device=device)
 
     def conv(node):
-        if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        if isinstance(node, list):
-            return [conv(v) for v in node]
         lead = tuple(node.k.shape[:-4])          # (L,) when stacked
         hk, dh = node.k.shape[-2:]
         pool = torch.zeros(lead + (n_blocks, block_size, hk, dh),
@@ -290,7 +297,10 @@ def paged_cache_from_template(template, *, slots: int, block_size: int,
             pool, torch.zeros_like(pool), table,
             torch.zeros(lead + (slots,), dtype=torch.int32, device=device))
 
-    return conv(template), nb, n_blocks
+    def dense(t):
+        return torch.zeros(t.shape, dtype=t.dtype, device=device)
+
+    return attn.map_cache(template, conv, dense), nb, n_blocks
 
 
 def scatter_row(pool_c: attn.PagedKVCache, dense_c: attn.KVCache,
@@ -336,7 +346,8 @@ class PagedEngine(ContinuousEngine):
         self.blk = int(block_size)
         self._pool_args = (pool_blocks, capacity_blocks)
         super().__init__(model, params, batch_admit=False, **kw)
-        self.capacity = self.nb * self.blk
+        # a pure SSM has no KV leaf (nb = 0): its capacity is max_len
+        self.capacity = self.nb * self.blk if self.nb else self.max_len
         # cache_prefixes: park zero-ref prefix-tagged blocks on the
         # pool's cold LRU list so repeat prompts hit even after every
         # sharer retired; admission under pressure evicts the coldest
@@ -382,7 +393,8 @@ class PagedEngine(ContinuousEngine):
     def _paginate(self, sub, row: list[int], slot: int) -> None:
         """Copy a dense batch-1 scratch prefill (width S) into the pool
         blocks ``row`` maps, in every layer (the dense prefix's too), and
-        take its lengths. Cells past the row (scratch wider than the
+        take its lengths; state leaves (an SSM's) take the ordinary
+        slot copy. Cells past the row (scratch wider than the
         allocation) go to the trash block."""
         r = torch.full((self.nb,), -1, dtype=torch.int32)
         r[:len(row)] = torch.tensor(row, dtype=torch.int32)
@@ -391,6 +403,7 @@ class PagedEngine(ContinuousEngine):
                                attn.kv_leaves(sub), strict=True):
             scatter_row(pool, small, r, self.blk)
             pool.length[..., slot] = small.length[..., 0]
+        copy_state_rows(self.cache, sub, slot, 0)
 
     def _fork(self, src: int, dst: int) -> None:
         """Copy physical block ``src`` into ``dst`` in every layer."""
@@ -412,14 +425,13 @@ class PagedEngine(ContinuousEngine):
         logits, _ = self._extend(
             self.params, {"tokens": torch.from_numpy(tokens).to(self.device),
                           "start": start, "seg_len": seg_len},
-            {"scan": view(self.cache["scan"]),
-             "prefix": [view(c) for c in self.cache["prefix"]]})
+            attn.map_cache(self.cache, view, lambda t: t[:, slot:slot + 1]))
         return logits
 
     # -- host-side admission --------------------------------------------------
 
     def _budget(self, req: Request) -> int:
-        if self.rolling:
+        if self.rolling or not self.nb:
             return super()._budget(req)
         return max(1, min(req.max_new_tokens,
                           self.capacity - len(req.prompt)))
@@ -500,6 +512,11 @@ class PagedEngine(ContinuousEngine):
                 self.pool.tag(tail_bid, ("tail", tail_digest))
 
     def _admit_one(self, req: Request, slot: int) -> None:
+        if not self.nb:
+            # no KV leaf (pure SSM): paging degenerates to the dense
+            # batch-1 admission, the "paged" cache IS the dense cache
+            self._admit_group([req], [slot])
+            return
         plen = len(req.prompt)
         if self.rolling:
             # ring semantics: the scratch prefill keeps the last window
@@ -592,8 +609,9 @@ class PagedEngine(ContinuousEngine):
     def _push_tables(self) -> None:
         if not self._tbl_dirty:
             return
-        # one table, shared by every KV leaf
-        self.cache["scan"].table.copy_(torch.from_numpy(self._tables))
+        leaves = attn.kv_leaves(self.cache)
+        if leaves:          # one table, shared by every KV leaf
+            leaves[0].table.copy_(torch.from_numpy(self._tables))
         self._tbl_dirty = False
 
     def _before_chunk(self) -> None:

@@ -9,10 +9,10 @@ The cases are the reference's (``tests/test_distributed.py``): the
 per-hop ring op (plain, fused first hop, a non-identity order, partial
 weights, a restart after two hops), the hierarchical (4, 2) ring
 against the per-slice simulator, and the trainer with the delayed
-overlap, error feedback and a crash that tears the sync in flight
-(reduced INTELLECT-1 in place of the reference's mamba2-130m, which the
-port does not have yet; the simulated trainer is held against
-``repro``'s in ``tests/test_torch_elastic.py``). Codec calls, summed
+overlap, error feedback and a crash that tears the sync in flight, on
+the reference's reduced mamba2-130m and on the reduced INTELLECT-1 (the
+simulated trainer is held against ``repro``'s in
+``tests/test_torch_elastic.py``). Codec calls, summed
 over the ranks, equal k x ``codec_calls`` per reduction. The mesh
 bookkeeping is held against ``repro``'s, which needs forced host
 devices, in a subprocess. One rank pool per mesh shape per module.
@@ -222,9 +222,8 @@ def test_hierarchical_ring_matches_per_slice_sim(mesh42):
 INNER, CHUNKS, STEPS = 5, 7, 4
 
 
-def _trainer(backend=None):
-    cfg = dataclasses.replace(get_config("intellect-1").reduced(),
-                              dtype="float32")
+def _trainer(backend=None, arch="intellect-1"):
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
     model = get_model(cfg, "cpu")
     tcfg = TrainerConfig(
         tdl.DiLoCoConfig(inner_steps=INNER, quant="int8",
@@ -258,10 +257,30 @@ def test_dist_backend_trainer_bit_identical_to_sim(mesh4, reorder):
     torn-reduction fallback on both paths. A stable ring is formed once;
     a reorder forms it once more."""
     sampler = _links if reorder else None
-    t_sim = _trainer()
+    t_dist, hist_dist, backend = _dist_equals_sim(mesh4, "intellect-1",
+                                                  sampler)
+    assert backend.recompiles == (2 if reorder else 1)
+    assert t_dist.reorders == (1 if reorder else 0)
+    # every reduction that ran: syncs begun and finished, the torn ring's
+    # dispatched hops and its restart; EF is on, so no fused first hop
+    fb = next(r["sync_fallback"] for r in hist_dist if "sync_fallback" in r)
+    assert sorted(r["hops"] for r in backend.reductions) == sorted(
+        [fb["hops_done"]] + [2 * (K - 1)] * STEPS)
+    for rec in backend.reductions:
+        assert rec["ranks"] == K and not rec["fused"]
+        assert _calls_per_rank(rec, False, rec["hops"],
+                               t_dist.cfg.diloco.ring)
+
+
+def _dist_equals_sim(mesh, arch, sampler):
+    """The simulated and the distributed trainer of ``arch`` over the
+    same 4 outer steps: histories, losses, ring orders, parameters and
+    anchor bitwise equal, the crash tearing the in-flight sync on both.
+    Returns the distributed trainer, its history and its backend."""
+    t_sim = _trainer(arch=arch)
     hist_sim = t_sim.run(STEPS, bandwidth_sampler=sampler)
-    backend = ts.DistSyncBackend(mesh4, "data")
-    t_dist = _trainer(backend)
+    backend = ts.DistSyncBackend(mesh, "data")
+    t_dist = _trainer(backend, arch=arch)
     hist_dist = t_dist.run(STEPS, bandwidth_sampler=sampler)
     torn = [("sync_fallback" in r) for r in hist_dist]
     assert torn == [("sync_fallback" in r) for r in hist_sim]
@@ -272,13 +291,17 @@ def test_dist_backend_trainer_bit_identical_to_sim(mesh4, reorder):
     assert [r["loss"] for r in hist_dist] == [r["loss"] for r in hist_sim]
     assert [r["ring_order"] for r in hist_dist] == \
         [r["ring_order"] for r in hist_sim]
-    assert backend.recompiles == (2 if reorder else 1)
-    assert t_dist.reorders == (1 if reorder else 0)
-    # every reduction that ran: syncs begun and finished, the torn ring's
-    # dispatched hops and its restart; EF is on, so no fused first hop
-    fb = next(r["sync_fallback"] for r in hist_dist if "sync_fallback" in r)
-    assert sorted(r["hops"] for r in backend.reductions) == sorted(
-        [fb["hops_done"]] + [2 * (K - 1)] * STEPS)
+    return t_dist, hist_dist, backend
+
+
+def test_dist_backend_trainer_mamba2_bit_identical_to_sim(mesh4):
+    """The reference's own trainer case (``tests/test_distributed.py``):
+    the reduced mamba2-130m, overlap='delayed' with error feedback, a
+    worker crashing at step 2; the distributed trainer equals the
+    simulated one bit for bit and forms its stable ring once."""
+    t_dist, _, backend = _dist_equals_sim(mesh4, "mamba2-130m", None)
+    assert backend.recompiles == 1
+    assert t_dist.reorders == 0
     for rec in backend.reductions:
         assert rec["ranks"] == K and not rec["fused"]
         assert _calls_per_rank(rec, False, rec["hops"],

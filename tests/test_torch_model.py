@@ -116,4 +116,4 @@ def test_init_scales_and_layout():
 
 def test_other_families_raise():
     with pytest.raises(NotImplementedError, match="later slice"):
-        tget_model(TCONFIGS["mamba2-130m"].reduced(), "cpu")
+        tget_model(TCONFIGS["seamless-m4t-medium"].reduced(), "cpu")

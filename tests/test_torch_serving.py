@@ -147,6 +147,7 @@ def test_port_imports_neither_jax_nor_repro(tmp_path):
             "repro_torch.data.pipeline, repro_torch.models.common, "
             "repro_torch.models.transformer, repro_torch.models.registry, "
             "repro_torch.models.moe, repro_torch.models.attention, "
+            "repro_torch.models.ssm, repro_torch.models.hybrid, "
             "repro_torch.launch.profile_decode, "
             "repro_torch.checkpointing, "
             "repro_torch.checkpointing.checkpoint, "
@@ -208,13 +209,51 @@ def test_serve_main_paged_on_cpu(capsys):
     assert "prefix_hit_rate=" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv", [["--arch", "mamba2-130m"],
-                                  ["--arch", "seamless-m4t-medium"]])
+@pytest.mark.parametrize("argv", [["--arch", "seamless-m4t-medium"]])
 def test_serve_unported_paths_raise(argv):
-    """The families that are not ported yet (SSM, enc-dec) raise."""
+    """The family that is not ported yet (enc-dec) raises."""
     from repro_torch.launch import serve
     with pytest.raises(NotImplementedError):
         serve.main(["--device", "cpu", "--reduced", *argv])
+
+
+def _serve_family_on_cpu(arch, engine, capsys) -> dict:
+    from repro_torch.launch import serve
+    s = serve.main(["--device", "cpu", "--reduced", "--arch", arch,
+                    "--engine", engine, "--requests", "3", "--prompt-len",
+                    "40", "--max-new", "5", "--max-len", "64"])
+    assert s["engine"] == engine and s["requests"] == 3 and all(s["done"])
+    assert all(0 <= t < s["padded_vocab"] for o in s["outputs"] for t in o)
+    assert "tok/s=" in capsys.readouterr().out
+    return s
+
+
+@pytest.mark.parametrize("engine", ["continuous", "paged"])
+def test_serve_main_ssm_on_cpu(engine, capsys):
+    """``--arch mamba2-130m`` serves through the launcher; its paged
+    engine has no KV leaf to page (no blocks used)."""
+    s = _serve_family_on_cpu("mamba2-130m", engine, capsys)
+    if engine == "paged":
+        assert s["blocks_peak"] == 0
+
+
+@pytest.mark.parametrize("engine", ["continuous", "paged"])
+def test_serve_main_hybrid_on_cpu(engine, capsys):
+    """``--arch zamba2-2.7b`` serves through the launcher; its paged
+    engine pages the shared attention's K/V."""
+    s = _serve_family_on_cpu("zamba2-2.7b", engine, capsys)
+    if engine == "paged":
+        assert s["blocks_peak"] > 0
+
+
+def test_serve_swarm_refuses_the_hybrid():
+    """``--swarm`` needs the stage seam, which the SSM and hybrid
+    families lack: the reference's ValueError, before anything is
+    served."""
+    from repro_torch.launch import serve
+    with pytest.raises(ValueError, match="stage partition"):
+        serve.main(["--swarm", "--device", "cpu", "--reduced",
+                    "--arch", "zamba2-2.7b"])
 
 
 def test_serve_main_swarm_on_cpu(capsys):
