@@ -143,10 +143,45 @@ Phases, each of which raises on failure (nothing is caught):
    299-token prefill and one decode step, in fp32 within
    ``SSM_CHUNK_TOL`` (the bf16 gap printed).
 
+13. the enc-dec family: kernel 5 at seamless-m4t-medium's decode shapes
+   (16 heads of 64, G = 1, B = 4: the self cache at S_max 512, lengths
+   [512, 1, 300, 77], and the cross cache at S_max = src_len = 512),
+   bf16 and fp32, against its plain version, a repeat bitwise, one
+   device record a call, timed beside SDPA; the reduced model card
+   against CPU (prefill + 8 greedy steps: tokens equal, logits within
+   1e-3); seamless-m4t-medium at full width and depth (6 + 6 layers;
+   751,337,472 parameters on the meta device), random weights and a
+   random 512-frame source, B = 4, ``ModelDef.prefill`` and 32 greedy
+   ``decode`` steps in bf16 and in fp32: kernel 5 launched 12 times a
+   step (6 self, 6 cross), kernel 6 never, and in fp32 every step's
+   logits within ``ENCDEC_TOL`` of the teacher-forced decoder over
+   [BOS, emitted tokens] (the bf16 gap printed); the loss under autograd
+   on 2 x (512 frames + 512 tokens), loss and every gradient finite.
+
+14. the asynchronous RL tier: kernel 5 at the continuous rollout
+   worker's dense cache (16 heads of 128 over kv 8, B = 4, 18 cells)
+   and kernel 6 at the paged worker's (32 cells in 16-cell blocks),
+   fp32, sized from ``RLConfig`` as the driver sizes them; the reduced
+   ``RLDriver`` card against CPU (the same ledger and counts);
+   ``RLDriver`` on internlm2-1.8b at full width, depth cut to 1, 2
+   DiLoCo slots with the int8 ring, the int8 policy chain, worker 0
+   continuous and worker 1 paged, adopt strides (1, 3), 3 outer steps.
+   Every adoption's sha must be the publisher's, the ledger identity
+   hold, the lag stay in the window, 4 versions be published; kernel 5
+   (6) launch once per layer per decode step in worker 0's (1's) engine,
+   the other never; kernels 2 and 4 once per float leaf per delta (a
+   publish encodes and applies it, an adopt applies each delta it
+   replays); the ring's codec launches its formula's per sync; every
+   captured logprob finite, <= 0, one per token, and a non-capturing
+   engine at the same seed give each worker's last round's tokens;
+   losses finite, peak under 70 GiB. Rollout tok/s, publish and adopt
+   seconds and bytes are printed.
+
 ``python3 chip_smoke.py --dist-slots N`` builds and runs phase 9 alone
 with N slots (how its slot count was sized), ``--swarm-only`` phase 10
-alone, ``--moe-only`` phase 11 alone, ``--ssm-only`` phase 12 alone;
-none prints a result.
+alone, ``--moe-only`` phase 11 alone, ``--ssm-only`` phase 12 alone,
+``--encdec-only`` phase 13 alone, ``--rl-only`` phase 14 alone; none
+prints a result.
 
 The last three lines are the kernels (JSON), the card (name, power
 limit) and the result.
@@ -287,6 +322,40 @@ SSM_FD_CASES = [("zamba2-2.7b", 4, 512, 32, 1, 80, [512, 1, 300, 77])]
 SSM_CHUNKS = {"batch": 2, "prompt_len": 300, "max_len": 512, "seed": 0}
 SSM_CHUNK_TOL = 2e-3
 SSM_CHUNK_DEPTHS = {"mamba2-130m": (8, 24), "zamba2-2.7b": (6, 18, 54)}
+# phase 13: the enc-dec family. seamless-m4t-medium at full width and
+# depth (6 encoder + 6 decoder layers, d_model 1024, 16 heads of 64 with
+# kv 16, d_ff 4096, vocab 256206; 751,337,472 parameters on the meta
+# device), random weights and a random 512-frame source (the frontend is
+# a stub in the JAX package too), B = 4, prefill + 32 greedy steps; the
+# loss under autograd on 2 x (512 frames + 512 tokens)
+ENCDEC = {"arch": "seamless-m4t-medium", "batch": 4, "src_len": 512,
+          "steps": 32, "seed": 0}
+ENCDEC_TRAIN = {"batch": 2, "src_len": 512, "tgt_len": 512, "seed": 0}
+# fp32 decode against the teacher-forced decoder: the two differ only in
+# fp32 sums (a (1, D) row against an (S, D) product, prefill attention
+# against the kernel), as phase 12's multi-chunk gate
+ENCDEC_TOL = 2e-3
+# kernel 5 at seamless's decode: the self cache and the cross cache
+ENCDEC_FD_CASES = [
+    ("seamless-m4t-medium self", 4, 512, 16, 1, 64, [512, 1, 300, 77]),
+    ("seamless-m4t-medium cross", 4, 512, 16, 1, 64, [512, 512, 512, 512])]
+# phase 14: the asynchronous RL tier. RLDriver on internlm2-1.8b at full
+# width, depth cut to 1 (publishing and adopting the fp32 policy go
+# through host deflate and the swarm fetch, which scale with the
+# parameters), 2 DiLoCo slots with the int8 ring, the int8 policy chain,
+# 2 rollout workers (0 continuous, 1 paged) adopting on strides (1, 3), 3
+# outer steps; RLConfig's other fields are the JAX package's defaults
+RL = {"arch": "internlm2-1.8b", "reduced": False, "n_layers": 1,
+      "trainer_workers": 2, "n_workers": 2,
+      "engines": ("continuous", "paged"), "adopt_strides": (1, 3),
+      "outer_steps": 3, "codec": "int8"}
+RL_REDUCED = dict(RL, reduced=True, n_layers=None)
+# the summary's counts that depend on neither the weights nor the
+# sampled tokens
+RL_COUNTS = ("outer_steps", "versions_published", "ledger",
+             "stale_drop_fraction", "mean_accepted_lag", "adoptions",
+             "bit_exact", "retired_fallbacks", "live_versions",
+             "starved_phases")
 # (B, S_max, Hk, G, dh, lengths): INTELLECT-1's attention at a long cache,
 # where the bytes rather than the latency chain should set the pace
 FD_LONG = (4, 8192, 8, 4, 128, [8192, 4096, 2048, 1])
@@ -2786,8 +2855,9 @@ def swarm_serve_phase() -> dict:
 
 
 def hold_flash_decode(cases, seed: int,
-                      dtype: torch.dtype = torch.bfloat16) -> dict:
-    """Kernels 5 and 6 at ``cases`` ((label, B, S_max, Hk, G, dh,
+                      dtype: torch.dtype = torch.bfloat16,
+                      kernels=("flash_decode", "flash_decode_paged")) -> dict:
+    """``kernels`` (5 and 6) at ``cases`` ((label, B, S_max, Hk, G, dh,
     lengths)) in ``dtype``: each against its plain version within
     ``TOL``, a repeat bitwise equal, kernel 6 on a permuted pool of
     16-cell blocks bitwise equal to kernel 5 on the gathered view; timed
@@ -2796,19 +2866,23 @@ def hold_flash_decode(cases, seed: int,
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.models.attention import (PagedKVCache, decode_valid_mask,
                                               paged_view)
-    out = {"flash_decode": {}, "flash_decode_paged": {}}
+    out = {name: {} for name in kernels}
     dname = str(dtype).removeprefix("torch.")
     for i, (label, b, s_max, hk, g, dh, lengths) in enumerate(cases):
         q, k, v, length = flash_decode_inputs(b, s_max, hk, g, dh, dtype,
                                               lengths, seed=seed + i)
-        kp, vp, table = paged_pool(k, v, length, 16, seed=seed + i)
         dense = fd.flash_decode(q, k, v, length)
-        paged = fd.flash_decode_paged(q, kp, vp, table, length)
-        torch.cuda.synchronize()
-        view = paged_view(PagedKVCache(kp, vp, table, length))
-        if not torch.equal(paged, fd.flash_decode(q, view.k, view.v, length)):
-            raise AssertionError(f"flash_decode_paged {label}: not bitwise "
-                                 "equal to flash_decode on the gathered view")
+        kp = vp = table = view = paged = None
+        if "flash_decode_paged" in kernels:
+            kp, vp, table = paged_pool(k, v, length, 16, seed=seed + i)
+            paged = fd.flash_decode_paged(q, kp, vp, table, length)
+            torch.cuda.synchronize()
+            view = paged_view(PagedKVCache(kp, vp, table, length))
+            if not torch.equal(paged, fd.flash_decode(q, view.k, view.v,
+                                                      length)):
+                raise AssertionError(f"flash_decode_paged {label}: not "
+                                     "bitwise equal to flash_decode on "
+                                     "the gathered view")
         valid = decode_valid_mask(length, s_max, None)[:, None, None, :]
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         shape = {"B": b, "S_max": s_max, "Hk": hk, "G": g, "dh": dh,
@@ -2827,7 +2901,10 @@ def hold_flash_decode(cases, seed: int,
                      qt, paged_view(PagedKVCache(kp, vp, table, length))
                      .k.transpose(1, 2), paged_view(PagedKVCache(
                          kp, vp, table, length)).v.transpose(1, 2),
-                     attn_mask=valid, enable_gqa=True), table.numel() * 4)):
+                     attn_mask=valid, enable_gqa=True),
+                 table.numel() * 4 if table is not None else 0)):
+            if name not in kernels:
+                continue
             err = check_repeat_and_close(f"{name} {label}", got, run(),
                                          plain(), dtype)
             bound, bound_by = flash_decode_bound(q, k, length, None,
@@ -2862,10 +2939,11 @@ def moe_flash_decode() -> dict:
 def meta_param_count(cfg) -> int:
     """Parameters of ``cfg``'s tree, counted on the ``meta`` device."""
     from repro_torch.core.sync_engine import leaves
-    from repro_torch.models import hybrid
+    from repro_torch.models import encdec, hybrid
     from repro_torch.models import transformer as tf
-    alloc = hybrid.alloc_hybrid if cfg.family in ("ssm", "hybrid") \
-        else tf.alloc_lm
+    alloc = (hybrid.alloc_hybrid if cfg.family in ("ssm", "hybrid")
+             else encdec.alloc_encdec if cfg.family == "encdec"
+             else tf.alloc_lm)
     return sum(t.numel() for t in leaves(alloc(cfg, device="meta")))
 
 
@@ -3455,6 +3533,555 @@ def ssm_phase() -> dict:
     return out
 
 
+# -- phase 13: the enc-dec family --------------------------------------------
+
+
+def encdec_flash_decode() -> dict:
+    """Kernel 5 at seamless-m4t-medium's decode shapes
+    (``ENCDEC_FD_CASES``: 16 heads of 64, G = 1, B = 4; the self cache
+    at S_max 512, lengths [512, 1, 300, 77], and the cross cache at
+    S_max = src_len = 512, every length 512) in bf16 and fp32: within
+    ``TOL`` of its plain version, a repeat bitwise equal, one device
+    record a call in torch.profiler; timed beside its plain version and
+    SDPA, bound from the live K/V bytes. Returns {label: entry}."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models.attention import decode_valid_mask
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).removeprefix("torch.")
+        for i, (label, b, s_max, hk, g, dh, lengths) in enumerate(
+                ENCDEC_FD_CASES):
+            label = f"{label} {dname}"
+            q, k, v, length = flash_decode_inputs(
+                b, s_max, hk, g, dh, dtype, lengths,
+                seed=100 + i + 10 * (dtype == torch.float32))
+
+            def run(q=q, k=k, v=v, length=length):
+                return fd.flash_decode(q, k, v, length)
+
+            def plain(q=q, k=k, v=v, length=length):
+                return fd.flash_decode_torch(q, k, v, length)
+            valid = decode_valid_mask(length, s_max, None)[:, None, None, :]
+            qt, kt, vt = (q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2))
+
+            def library(qt=qt, kt=kt, vt=vt, valid=valid):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=valid, enable_gqa=True)
+            err = check_repeat_and_close(f"flash_decode {label}", run(),
+                                         run(), plain(), dtype)
+            split = one_kernel_per_call(f"flash_decode {label}", run)
+            bound, bound_by = flash_decode_bound(q, k, length, None)
+            e = {"ms": time_ms(run), "plain_ms": time_ms(plain),
+                 "bound_ms": bound, "bound_by": bound_by,
+                 "library_ms": time_ms(library), "max_abs_err": err,
+                 "launch_split_ms": split,
+                 "shape": {"B": b, "S_max": s_max, "Hk": hk, "G": g,
+                           "dh": dh, "dtype": dname, "lengths": lengths}}
+            out[label] = e
+            log(f"kernel flash_decode {label} (Hq={hk * g}, Hk={hk}, "
+                f"dh={dh}, B={b}, S_max={s_max}, lengths {lengths}): "
+                f"max|err|={err:.3g} (tol {TOL[dtype]}), repeat bitwise, "
+                f"one device record a call; {e['ms']:.5f} ms, bound "
+                f"{bound:.6f} ms ({bound_by}), plain {e['plain_ms']:.5f} "
+                f"ms, SDPA {e['library_ms']:.5f} ms")
+            del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_greedy(model, params, src, steps: int, max_len: int):
+    """``ModelDef.prefill`` of ``src`` behind a BOS token, then ``steps``
+    greedy ``decode`` steps. Returns (per-step logits [prefill's first],
+    tokens fed [BOS first], decode launches counted over the steps)."""
+    from repro_torch.configs.base import ShapeConfig
+    b = src.shape[0]
+    shape = ShapeConfig("encdec", "decode", max_len, b)
+    bos = torch.ones((b, 1), dtype=torch.int32, device=src.device)
+    logits, cache = model.prefill(params, {"src_embeds": src, "bos": bos},
+                                  model.init_cache(b, shape))
+    out, toks = [logits], [bos]
+    reset_decode_counts()
+    for _ in range(steps):
+        tok = out[-1].argmax(-1, keepdim=True).to(torch.int32)
+        toks.append(tok)
+        lg, cache = model.decode(params, tok, cache)
+        out.append(lg)
+    if src.is_cuda:
+        torch.cuda.synchronize()
+    return out, toks, decode_counts()
+
+
+def check_reduced_encdec() -> float:
+    """The reduced seamless-m4t-medium (fp32) on the card against the
+    same weights on the CPU: prefill of a 24-frame source, then 8 greedy
+    steps; tokens equal, every step's logits within 1e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+    cfg = get_config(ENCDEC["arch"]).reduced()
+    cpu, gpu = get_model(cfg, "cpu"), get_model(cfg, "cuda")
+    params = cpu.init(0)
+    src = torch.randn((3, 24, cfg.d_model),
+                      generator=torch.Generator().manual_seed(1))
+    lc, tc, _ = encdec_greedy(cpu, params, src, 8, 32)
+    lg, tg, counts = encdec_greedy(gpu, to_device(params, "cuda"),
+                                   src.to("cuda"), 8, 32)
+    n_dec = cfg.n_layers - cfg.n_layers // 2
+    check_launches("reduced encdec", counts, "flash_decode", 2 * n_dec * 8)
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(tg, tc)):
+        raise AssertionError("reduced encdec GPU vs CPU: tokens differ")
+    worst = max((a.cpu() - b).abs().max().item() for a, b in zip(lg, lc))
+    if worst > 1e-3:
+        raise AssertionError(f"reduced encdec GPU vs CPU: max|err| {worst}")
+    log(f"reduced {cfg.name} fp32 GPU vs CPU: prefill + 8 greedy steps, "
+        f"tokens equal, max|logit err|={worst:.3g} (tol 1e-3)")
+    return worst
+
+
+def encdec_decode() -> dict:
+    """seamless-m4t-medium at full width and depth (``ENCDEC``): random
+    weights and a random 512-frame source from a seed, B = 4,
+    ``ModelDef.prefill`` then 32 greedy ``decode`` steps, in the config's
+    bf16 and again in fp32. Gates: kernel 5 launched 12 times a step (6
+    self, 6 cross), kernel 6 never; in fp32 every step's logits within
+    ``ENCDEC_TOL`` of the teacher-forced decoder over [BOS, emitted
+    tokens] (the bf16 gap printed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec
+    from repro_torch.models.registry import get_model
+    e = ENCDEC
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    base = get_config(e["arch"])
+    n_meta = meta_param_count(base)
+    n_enc, n_dec = encdec.n_enc_dec(base)
+    out = {"params": n_meta}
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        model = get_model(cfg, "cuda")
+        params = model.init(e["seed"])
+        gen = torch.Generator(device="cuda").manual_seed(e["seed"])
+        src = torch.randn((e["batch"], e["src_len"], cfg.d_model),
+                          generator=gen, device="cuda").to(cfg.torch_dtype)
+        ts = time.perf_counter()
+        steps, toks, counts = encdec_greedy(model, params, src, e["steps"],
+                                            e["src_len"])
+        wall = time.perf_counter() - ts
+        launches = check_launches(f"encdec {dtype}", counts, "flash_decode",
+                                  2 * n_dec * e["steps"])
+        with torch.no_grad():
+            mem = encdec.encode(cfg, params, src)
+            full = encdec.decoder_logits(cfg, params, mem,
+                                         torch.cat(toks, 1))
+        errs = [(lg.float() - full[:, j].float()).abs().max().item()
+                for j, lg in enumerate(steps)]
+        agree = sum(int((lg.argmax(-1) == full[:, j].argmax(-1)).sum())
+                    for j, lg in enumerate(steps))
+        scale = full.float().abs().max().item()
+        if not all(math.isfinite(x) for x in errs):
+            raise AssertionError(f"encdec {dtype}: non-finite logits")
+        if dtype == "float32" and max(errs) > ENCDEC_TOL:
+            raise AssertionError(f"encdec fp32: decode vs teacher forcing "
+                                 f"max|err| {max(errs)} > {ENCDEC_TOL}")
+        ntok = e["batch"] * (e["steps"] + 1)
+        log(f"encdec {cfg.name} {dtype}: {n_enc}+{n_dec} layers, "
+            f"{n_meta} parameters (meta device), B={e['batch']}, source "
+            f"{e['src_len']} frames, prefill + {e['steps']} greedy steps in "
+            f"{wall:.3f}s ({ntok / wall:.1f} tok/s); launches {launches} "
+            f"({launches // e['steps']} a step); max|logit err| vs teacher "
+            f"forcing {max(errs):.4g}"
+            f"{f' (tol {ENCDEC_TOL})' if dtype == 'float32' else ' (printed)'}"
+            f", logits' max |value| {scale:.3g}, greedy agreement "
+            f"{agree}/{len(steps) * e['batch']}")
+        out[dtype] = {"max_abs_err": max(errs), "launches": launches,
+                      "wall_s": wall, "tokens_per_s": ntok / wall,
+                      "agree": agree}
+        del params, model, src, mem, full, steps
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def encdec_train() -> dict:
+    """The enc-dec loss under autograd at full width and depth
+    (``ENCDEC_TRAIN``): B = 2, a 512-frame source and 512 target tokens
+    through ``ModelDef.loss`` and ``backward``; the loss, its metrics and
+    every gradient finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.sync_engine import leaves
+    from repro_torch.models.registry import get_model
+    m = ENCDEC_TRAIN
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(ENCDEC["arch"])
+    model = get_model(cfg, "cuda")
+    params = model.init(m["seed"])
+    for t in leaves(params):
+        t.requires_grad_(True)
+    gen = torch.Generator(device="cuda").manual_seed(m["seed"])
+    shape = (m["batch"], m["tgt_len"])
+    batch = {"src_embeds": torch.randn((m["batch"], m["src_len"],
+                                        cfg.d_model), generator=gen,
+                                       device="cuda").to(cfg.torch_dtype),
+             "tokens": torch.randint(2, cfg.vocab, shape, generator=gen,
+                                     device="cuda", dtype=torch.int32),
+             "targets": torch.randint(2, cfg.vocab, shape, generator=gen,
+                                      device="cuda", dtype=torch.int32),
+             "mask": torch.ones(shape, device="cuda")}
+    loss, metrics = model.loss(params, batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    vals = {k: float(metrics[k].detach()) for k in ("loss", "ce", "z")}
+    if not all(math.isfinite(x) for x in vals.values()):
+        raise AssertionError(f"encdec train: {vals}")
+    grads = leaves(params)
+    if any(t.grad is None or not torch.isfinite(t.grad).all() for t in grads):
+        raise AssertionError("encdec train: a gradient is missing or not "
+                             "finite")
+    peak = torch.cuda.max_memory_allocated()
+    wall = time.perf_counter() - t0
+    log(f"encdec train {cfg.name}: loss={vals['loss']:.4f} "
+        f"ce={vals['ce']:.4f} z={vals['z']:.4f} on {m['batch']} x "
+        f"({m['src_len']} frames + {m['tgt_len']} tokens); {len(grads)} "
+        f"gradients finite; peak_mem={peak / 2**30:.2f}GiB in {wall:.1f}s")
+    del params, grads, loss, metrics, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(vals, peak_bytes=peak, wall_s=wall)
+
+
+def encdec_phase() -> dict:
+    """Phase 13: (a) kernel 5 at seamless-m4t-medium's self and cross
+    shapes, (b) the reduced model card against CPU, (c) full width and
+    depth decode against teacher forcing, (d) the loss under
+    autograd."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"kernels": encdec_flash_decode(), "reduced": check_reduced_encdec(),
+           "decode": encdec_decode(), "train": encdec_train()}
+    peak = max(out["decode"]["peak_bytes"], out["train"]["peak_bytes"])
+    if peak >= PEAK_LIMIT_BYTES:
+        raise AssertionError(f"encdec phase peak {peak / 2**30:.2f} GiB")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"encdec phase: {out['wall_s']:.1f}s")
+    return out
+
+
+# -- phase 14: the asynchronous RL tier --------------------------------------
+
+
+def rl_fd_cases() -> dict:
+    """Kernel name -> its case at the rollout worker that launches it,
+    sized as ``RLDriver._worker`` sizes the engines from ``RLConfig``
+    (``RL``): kernel 5 at the continuous worker's dense cache of
+    prompt_len + max_new + 2 cells, kernel 6 at the paged worker's,
+    rounded up to whole 16-cell blocks; B = the workers' batch slots,
+    the heads ``RL["arch"]``'s, fp32 as the published policy is. The
+    lengths span what the workers' decode passes: prompt_len + 1 up to
+    the width and past it (a slot that finished mid-chunk steps on
+    until the chunk ends; the kernel reads min(length, S_max) cells)."""
+    import inspect
+    from repro_torch.configs import get_config
+    from repro_torch.rl import RLConfig
+    from repro_torch.rl.driver import PAGED_BLOCK
+    from repro_torch.rl.rollout import RolloutWorker
+    cfg = RLConfig(device="cuda", **RL)
+    arch = get_config(cfg.arch)
+    worker = inspect.signature(RolloutWorker).parameters
+    b = worker["batch_slots"].default
+    chunk = worker["decode_chunk"].default
+    width = cfg.prompt_len + cfg.max_new + 2
+    paged = -(-width // PAGED_BLOCK) * PAGED_BLOCK
+    lengths = [cfg.prompt_len + 1, (cfg.prompt_len + 1 + width) // 2,
+               width, width + chunk]
+    if lengths[-1] > paged:
+        raise AssertionError(f"RL lengths {lengths} past the paged "
+                             f"worker's {paged} cells")
+    hk = arch.n_kv_heads
+    g = arch.n_heads // hk
+    dh = arch.head_dim or arch.d_model // arch.n_heads
+    label = f"{arch.name} rollout"
+    return {"flash_decode": (f"{label} continuous", b, width, hk, g, dh,
+                             lengths),
+            "flash_decode_paged": (f"{label} paged", b, paged, hk, g, dh,
+                                   lengths)}
+
+
+def rl_flash_decode() -> dict:
+    """Kernel 5 at the continuous rollout worker's decode shape and
+    kernel 6 at the paged worker's (``rl_fd_cases``), in fp32, through
+    ``hold_flash_decode``."""
+    cases = rl_fd_cases()
+    out = {}
+    for i, (name, case) in enumerate(cases.items()):
+        out[name] = hold_flash_decode([case], 120 + i, torch.float32,
+                                      kernels=(name,))[name]
+    return out
+
+
+def rl_driver(cfg, root: Path):
+    """An ``RLDriver`` on ``cfg`` under ``root`` with every role
+    instrumented: each worker's ``generate`` and ``adopt`` and the
+    publisher's ``publish``. v0, published while the driver is built,
+    must be a base version (no codec kernel). Returns (driver,
+    records); the records fill as the driver runs: per call, the
+    launches of the decode and codec kernels it made, the engine's
+    decode steps, its rollouts, wall seconds and the publish record."""
+    from repro_torch.rl import RLDriver
+    recs = {"generate": [], "adopt": [], "publish": []}
+
+    def counts():
+        return {**decode_counts(), **codec_counts()}
+
+    def delta(before):
+        after = counts()
+        return {k: after[k] - before[k] for k in after}
+
+    drv = RLDriver(cfg, root)
+    man = drv.publisher.store.load_manifest(0)
+    if man["kind"] != "base":
+        drv.close()
+        raise AssertionError(f"RL: v0 published as {man['kind']!r}, not "
+                             "'base'")
+    recs["v0"] = {"version": 0, "kind": man["kind"],
+                  "new_bytes": man["stats"]["new_bytes"],
+                  "logical_bytes": man["stats"]["logical_bytes"]}
+
+    def publish(*a, fn=drv.publisher.publish, **kw):
+        before, t0 = counts(), time.perf_counter()
+        rec = fn(*a, **kw)
+        torch.cuda.synchronize()
+        recs["publish"].append(dict(rec, launches=delta(before),
+                                    wall_s=time.perf_counter() - t0))
+        return rec
+    drv.publisher.publish = publish
+
+    for w in drv.workers:
+        def generate(*a, w=w, fn=w.generate, **kw):
+            before, steps = counts(), (w.engine.stats["decode_steps"]
+                                       if w.engine else 0)
+            rollouts, st = fn(*a, **kw)
+            torch.cuda.synchronize()
+            recs["generate"].append(dict(
+                worker=w.wid, kind=w.engine_kind, launches=delta(before),
+                steps=w.engine.stats["decode_steps"] - steps,
+                rollouts=rollouts, stats=st))
+            return rollouts, st
+
+        def adopt(*a, w=w, fn=w.adopt, **kw):
+            before = counts()
+            rec = fn(*a, **kw)
+            torch.cuda.synchronize()
+            recs["adopt"].append(dict(rec, launches=delta(before)))
+            return rec
+        w.generate, w.adopt = generate, adopt
+    return drv, recs
+
+
+def rl_reduced_ledgers() -> dict:
+    """The reduced driver (``RL`` on the reduced preset, 3 outer steps)
+    on the card and on the CPU: the same discrete ledger and counts
+    (sampled tokens come from each device's own streams)."""
+    from repro_torch.rl import RLConfig, RLDriver
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cfg = RLConfig(device=dev, **RL_REDUCED)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_rl_") as td:
+            drv = RLDriver(cfg, td)
+            try:
+                s = drv.run()
+            finally:
+                drv.close()
+        out[dev] = {k: s[k] for k in RL_COUNTS}
+        del drv
+    if out["cuda"] != out["cpu"]:
+        raise AssertionError(f"reduced RL driver GPU vs CPU: {out}")
+    if not out["cuda"]["bit_exact"]:
+        raise AssertionError("reduced RL driver: an adoption not bit-exact")
+    log(f"reduced RL driver GPU vs CPU: the same ledger and counts "
+        f"{json.dumps(out['cuda'])}")
+    return out["cuda"]
+
+
+def rl_main_path(root: Path) -> dict:
+    """``RLDriver`` on internlm2-1.8b at full width, depth ``RL["n_layers"]``
+    (``RL``): 2 DiLoCo slots with the int8 ring, the int8 policy chain,
+    worker 0 continuous, worker 1 paged, adopt strides (1, 3), 3 outer
+    steps. Every count is set to 0 just before ``run`` and read after.
+    Gates: every adoption's sha the publisher's; the ledger identity;
+    lag within the window; versions = outer steps + 1; kernel 5 (6)
+    once per layer per decode step in worker 0's (1's) engine, the other
+    never; kernels 2 and 4 once per float leaf per delta (publish:
+    encode and the writer's apply; adopt: one apply per delta
+    replayed); the ring's codec launches per sync by its formula; every
+    logprob finite, <= 0, one per token; a non-capturing engine at the
+    same seed gives each worker's last round's tokens; losses finite;
+    peak under 70 GiB."""
+    from repro_torch.checkpointing.delta import chain_steps
+    from repro_torch.core import ring_reduce as rr
+    from repro_torch.rl import RLConfig
+    from repro_torch.serving.engine import Request, make_engine
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = RLConfig(device="cuda", **RL)
+    drv, recs = rl_driver(cfg, root)
+    try:
+        setup_s = time.perf_counter() - t0
+        reset_decode_counts()
+        reset_codec_counts()
+        tr = time.perf_counter()
+        s = drv.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - tr
+        total = {**decode_counts(), **codec_counts()}
+        led, arch = s["ledger"], drv.arch
+        if not s["bit_exact"] or any(not a["sha_verified"]
+                                     or a["sha"] != drv.publisher.shas[
+                                         a["version"]]
+                                     for a in recs["adopt"]):
+            raise AssertionError(f"RL: an adoption not bit-exact: "
+                                 f"{recs['adopt']}")
+        if led["generated"] != (led["accepted"] + led["dropped_stale"]
+                                + led["evicted_capacity"] + len(drv.buffer)):
+            raise AssertionError(f"RL: ledger identity broken: {led}")
+        if led["max_accepted_lag"] > cfg.max_policy_lag or \
+                s["versions_published"] != cfg.outer_steps + 1:
+            raise AssertionError(f"RL: {s}")
+        if not all(math.isfinite(x) for x in s["loss_trend"]):
+            raise AssertionError(f"RL: non-finite loss {s['loss_trend']}")
+        # decode kernels, per generate call
+        for g in recs["generate"]:
+            kernel = ("flash_decode_paged" if g["kind"] == "paged"
+                      else "flash_decode")
+            check_launches(f"RL worker {g['worker']} ({g['kind']})",
+                           {k: g["launches"][k] for k in
+                            ("flash_decode", "flash_decode_paged")},
+                           kernel, arch.n_layers * g["steps"])
+            for r in g["rollouts"]:
+                if len(r.logprobs) != len(r.tokens) or not all(
+                        math.isfinite(x) and x <= 0 for x in r.logprobs):
+                    raise AssertionError(f"RL worker {g['worker']}: "
+                                         f"logprobs {r.logprobs} for "
+                                         f"tokens {r.tokens}")
+        n_float = float_leaves(drv.trainer.outer.anchor)
+        zero = dict.fromkeys(CODEC, 0)
+        for p in recs["publish"]:
+            want = dict(zero)
+            if p["kind"] == "delta":
+                want["pseudograd_encode_hist"] = want["decode_add"] = n_float
+            got = {k: p["launches"][k] for k in CODEC}
+            if got != want:
+                raise AssertionError(f"RL publish v{p['version']} "
+                                     f"({p['kind']}): codec launches {got}, "
+                                     f"want {want}")
+        for a in recs["adopt"]:
+            w = drv.workers[a["worker"]]
+            replayed = len(chain_steps(w.store, a["version"])) - 1
+            want = dict(zero, decode_add=n_float * replayed)
+            got = {k: a["launches"][k] for k in CODEC}
+            if got != want:
+                raise AssertionError(f"RL adopt v{a['version']} by worker "
+                                     f"{a['worker']}: codec launches {got}, "
+                                     f"want {want}")
+        per_sync = rr.codec_calls(drv.trainer.k, drv.trainer.cfg.diloco.ring,
+                                  fused_src=True)
+        side = {k: sum(r["launches"][k] for r in recs["publish"]
+                       + recs["adopt"]) for k in CODEC}
+        ring = {k: total[k] - side[k] for k in CODEC}
+        want_ring = {k: per_sync[k] * cfg.outer_steps for k in CODEC}
+        if ring != want_ring:
+            raise AssertionError(f"RL ring: codec launches {ring}, want "
+                                 f"{want_ring} ({per_sync} per sync)")
+        # capture does not change the stream: each worker's last round
+        # again on a fresh non-capturing engine at the same seed
+        same = {}
+        for w in drv.workers:
+            g = [r for r in recs["generate"] if r["worker"] == w.wid][-1]
+            eng = make_engine(w.engine_kind, w.model, w.engine.params,
+                              **w.engine_kw)
+            reqs = [Request(rid=r.rid, prompt=r.prompt,
+                            max_new_tokens=cfg.max_new,
+                            temperature=cfg.temperature)
+                    for r in g["rollouts"]]
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_drained()
+            same[w.wid] = [r.out_tokens for r in reqs] == \
+                [r.tokens for r in g["rollouts"]]
+            del eng
+        if not all(same.values()):
+            raise AssertionError(f"RL: a non-capturing engine's tokens "
+                                 f"differ: {same}")
+        peak = torch.cuda.max_memory_allocated()
+        if peak >= PEAK_LIMIT_BYTES:
+            raise AssertionError(f"RL phase peak {peak / 2**30:.2f} GiB")
+    finally:
+        drv.close()
+    launches = {"flash_decode": total["flash_decode"],
+                "flash_decode_paged": total["flash_decode_paged"],
+                **{k: total[k] for k in CODEC}}
+    pub = [{k: p[k] for k in ("version", "kind", "new_bytes",
+                              "logical_bytes", "wall_s")}
+           for p in recs["publish"]]
+    adopts = [{k: a[k] for k in ("worker", "version", "adopt_s",
+                                 "bytes_fetched", "chunks_fetched")}
+              for a in recs["adopt"]]
+    tok_s = {w.wid: [g["stats"]["tokens_per_s"] for g in recs["generate"]
+                     if g["worker"] == w.wid] for w in drv.workers}
+    log(f"RL publish v0 base (while the driver is built, within set-up): "
+        f"new_bytes={recs['v0']['new_bytes']} "
+        f"logical_bytes={recs['v0']['logical_bytes']}")
+    for p in pub:
+        log(f"RL publish v{p['version']} {p['kind']}: {p['wall_s']:.2f}s "
+            f"new_bytes={p['new_bytes']} logical_bytes={p['logical_bytes']}")
+    for a in adopts:
+        log(f"RL adopt worker {a['worker']} v{a['version']}: "
+            f"{a['adopt_s']:.2f}s bytes_fetched={a['bytes_fetched']} "
+            f"chunks={a['chunks_fetched']}")
+    for h, rec in enumerate(drv.step_recs):
+        log(f"RL outer step {h}: version {rec['version']} accepted "
+            f"{rec['accepted']} loss={rec['loss']:.4f} mean_reward="
+            f"{rec['mean_reward']:.3f} inner={rec['train']['inner_s']:.3f}s "
+            f"sync={rec['train']['sync_s']:.3f}s")
+    log(f"RL {arch.name} depth {arch.n_layers} full width: rollout tok/s "
+        f"{s['rollout_tok_s']:.1f} (per round {json.dumps(tok_s)}), "
+        f"{s['rollout_tokens']} tokens; ledger {json.dumps(led)}; "
+        f"adoptions {s['adoptions']} bit-exact, mean {s['mean_adopt_s']:.2f}"
+        f"s; launches {json.dumps(launches)} (ring {per_sync} a sync x "
+        f"{cfg.outer_steps}, {n_float} float leaves a delta); capture keeps "
+        f"the stream {same}; peak_mem={peak / 2**30:.2f}GiB; set-up "
+        f"{setup_s:.1f}s, run {run_s:.1f}s")
+    return {"launches": launches, "ring": ring, "per_sync": per_sync,
+            "publish": [recs["v0"]] + pub, "adopt": adopts, "summary": {
+                k: s[k] for k in RL_COUNTS + ("rollout_tok_s",
+                                              "rollout_tokens",
+                                              "mean_adopt_s", "adopt_bytes",
+                                              "loss_trend")},
+            "peak_bytes": peak, "setup_s": setup_s, "run_s": run_s}
+
+
+def rl_phase() -> dict:
+    """Phase 14: (a) kernels 5 and 6 at the rollout workers' shapes, (b) the
+    reduced driver card against CPU, (c) the driver at full width."""
+    t0 = time.perf_counter()
+    out = {"kernels": rl_flash_decode(), "reduced": rl_reduced_ledgers()}
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_rl_"))
+    try:
+        out["main"] = rl_main_path(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"RL phase: {out['wall_s']:.1f}s")
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dist-slots", type=int, default=None,
@@ -3469,6 +4096,12 @@ def main(argv=None) -> None:
                          "(after the build), and print no result")
     ap.add_argument("--ssm-only", action="store_true",
                     help="run only phase 12, the SSM and hybrid families "
+                         "(after the build), and print no result")
+    ap.add_argument("--encdec-only", action="store_true",
+                    help="run only phase 13, the enc-dec family (after "
+                         "the build), and print no result")
+    ap.add_argument("--rl-only", action="store_true",
+                    help="run only phase 14, the asynchronous RL tier "
                          "(after the build), and print no result")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
@@ -3493,6 +4126,14 @@ def main(argv=None) -> None:
     if args.ssm_only:
         ssm_phase()
         log(f"phase 12 alone passed in {time.perf_counter() - t0:.1f}s")
+        return
+    if args.encdec_only:
+        encdec_phase()
+        log(f"phase 13 alone passed in {time.perf_counter() - t0:.1f}s")
+        return
+    if args.rl_only:
+        rl_phase()
+        log(f"phase 14 alone passed in {time.perf_counter() - t0:.1f}s")
         return
     kernels = ([check_flash_decode()] + check_int8_codec()
                + [check_flash_decode_paged()])
@@ -3596,6 +4237,20 @@ def main(argv=None) -> None:
                 ssm["zamba2-2.7b"]["serve"]["foil"]["launches"]
             entry["launches_ssm"]["zamba2-2.7b chunks"] = \
                 ssm["zamba2-2.7b"]["chunks"]["launches"]
+    del ssm
+    gc.collect()
+    torch.cuda.empty_cache()
+    enc = encdec_phase()
+    kernels[0]["encdec_shapes"] = enc["kernels"]
+    kernels[0]["launches_encdec"] = {
+        dtype: enc["decode"][dtype]["launches"]
+        for dtype in ("bfloat16", "float32")}
+    del enc
+    rl = rl_phase()
+    for entry in (kernels[0], kernels[5]):
+        entry["rl_shapes"] = rl["kernels"][entry["name"]]
+    for entry in kernels:
+        entry["launches_rl"] = rl["main"]["launches"][entry["name"]]
     log(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -41,8 +41,9 @@ def from_jax_cache(cache, device="cuda") -> dict:
     ``device``: a transformer's ``{"scan": KVCache, "prefix": [KVCache,
     ...]}`` (KV leaves are anything with ``k``, ``v`` and ``length``,
     plus ``table`` for a ``PagedKVCache``), the dense prefix layers'
-    caches included, or an SSM / hybrid's ``{"ssm": SSMState, "kv":
-    KVCache or None}`` (the SSMState's four stacked fields in order). A
+    caches included, an SSM / hybrid's ``{"ssm": SSMState, "kv":
+    KVCache or None}`` (the SSMState's four stacked fields in order), or
+    an enc-dec's ``{"self": KVCache, "cross_k", "cross_v", "src_len"}``. A
     stacked paged leaf's (L, B, nb) table, which the JAX package
     broadcasts over layers, becomes the port's one (B, nb) table, which
     every leaf then shares; the layers' and leaves' tables must agree."""
@@ -66,6 +67,10 @@ def from_jax_cache(cache, device="cuda") -> dict:
             table = shared[0]
         shared.append(table)
         return PagedKVCache(k, v, table, length)
+    if "cross_k" in cache:
+        return {"self": one(cache["self"]),
+                **{key: to_tensor(cache[key], device)
+                   for key in ("cross_k", "cross_v", "src_len")}}
     if "ssm" in cache:
         return {"ssm": SSMState(*(to_tensor(a, device)
                                   for a in cache["ssm"])),

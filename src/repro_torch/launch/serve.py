@@ -48,6 +48,11 @@ raises ``ValueError``, as in the JAX package:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
       --reduced --engine paged --device cpu
+
+The enc-dec family (``seamless-m4t-medium``) has no engine: its prefill
+takes source frame embeddings and a BOS token, so ``--arch
+seamless-m4t-medium`` raises ``ValueError`` (it is served through
+``ModelDef.prefill`` / ``decode`` directly).
 """
 from __future__ import annotations
 
@@ -224,6 +229,12 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.family == "encdec":
+        # before any weights: no engine serves an enc-dec prefill (the
+        # JAX package's launcher fails on it with a KeyError)
+        raise ValueError(f"{cfg.name}: serving unsupported for family "
+                         "'encdec' (its prefill takes src_embeds and bos, "
+                         "not prompt tokens)")
     if args.device == "cuda":
         need = cfg.param_count() * torch.finfo(cfg.torch_dtype).bits // 8
         have = torch.cuda.get_device_properties(0).total_memory

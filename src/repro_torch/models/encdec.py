@@ -1,0 +1,266 @@
+"""Encoder-decoder transformer (port of ``repro.models.encdec``; the
+seamless-m4t-medium backbone).
+
+The speech / text frontend is a stub, as in the JAX package: the
+encoder takes precomputed frame embeddings (B, L_src, d_model); the
+decoder is a causal transformer with per-layer cross-attention into the
+encoder memory. Encoder and decoder layers stay stacked (leading ``L``
+dim) in the JAX package's layout and run as a Python loop.
+
+Serving: ``prefill`` encodes the source, computes each decoder layer's
+cross K/V once into the cache and runs the BOS token; ``decode_step``
+runs one decoder token against the self cache (written in place) and
+the static cross cache. Both decode attentions go through
+``attention.decode_attention``: on CUDA the flash-decode kernel runs
+twice per decoder layer per step, once against the self cache and once
+against the cross cache as a ``KVCache(cross_k, cross_v, src_len)``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models import common
+
+
+def _hd(cfg) -> int:
+    return cfg.head_dim or cfg.d_model // cfg.n_heads
+
+
+def n_enc_dec(cfg) -> tuple[int, int]:
+    """(encoder layers, decoder layers): ``n_layers`` split evenly, the
+    odd one to the decoder."""
+    n_enc = cfg.n_layers // 2
+    return n_enc, cfg.n_layers - n_enc
+
+
+def _alloc_attn(cfg, empty, lead) -> dict:
+    d, hq = cfg.d_model, cfg.n_heads * _hd(cfg)
+    hk = cfg.n_kv_heads * _hd(cfg)
+    return {"wq": empty(*lead, d, hq), "wk": empty(*lead, d, hk),
+            "wv": empty(*lead, d, hk), "wo": empty(*lead, hq, d)}
+
+
+def _alloc_mlp(cfg, empty, lead) -> dict:
+    d = cfg.d_model
+    return {"gate": empty(*lead, d, cfg.d_ff), "up": empty(*lead, d, cfg.d_ff),
+            "down": empty(*lead, cfg.d_ff, d)}
+
+
+def alloc_encdec(cfg, *, device="cuda") -> dict:
+    """The parameter tree of ``init_encdec`` (``repro``'s layout, the
+    config's dtype), unfilled but for the norm gains (ones): ``embed``,
+    ``ln_enc``, ``ln_dec``, ``lm_head`` and the stacked ``enc`` layers
+    (``ln_attn``, ``attn``, ``ln_mlp``, ``mlp``) and ``dec`` layers
+    (``ln_self``, ``self``, ``ln_cross``, ``cross``, ``ln_mlp``,
+    ``mlp``). On the ``meta`` device it is the abstract tree."""
+    def empty(*shape):
+        return torch.empty(shape, dtype=cfg.torch_dtype, device=device)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=cfg.torch_dtype, device=device)
+
+    d = cfg.d_model
+    n_enc, n_dec = n_enc_dec(cfg)
+    return {
+        "embed": empty(cfg.padded_vocab, d), "ln_enc": ones(d),
+        "ln_dec": ones(d), "lm_head": empty(d, cfg.padded_vocab),
+        "enc": {"ln_attn": ones(n_enc, d),
+                "attn": _alloc_attn(cfg, empty, (n_enc,)),
+                "ln_mlp": ones(n_enc, d),
+                "mlp": _alloc_mlp(cfg, empty, (n_enc,))},
+        "dec": {"ln_self": ones(n_dec, d),
+                "self": _alloc_attn(cfg, empty, (n_dec,)),
+                "ln_cross": ones(n_dec, d),
+                "cross": _alloc_attn(cfg, empty, (n_dec,)),
+                "ln_mlp": ones(n_dec, d),
+                "mlp": _alloc_mlp(cfg, empty, (n_dec,))}}
+
+
+def _init_attn(cfg, p: dict, generator: torch.Generator) -> None:
+    for name in ("wq", "wk", "wv"):
+        common.normal_(p[name], generator)
+    common.normal_(p["wo"], generator,
+                   scale=(cfg.n_heads * _hd(cfg)) ** -0.5)
+
+
+def _init_mlp(cfg, p: dict, generator: torch.Generator) -> None:
+    common.normal_(p["gate"], generator)
+    common.normal_(p["up"], generator)
+    common.normal_(p["down"], generator, scale=cfg.d_ff ** -0.5)
+
+
+def init_encdec(cfg, generator: torch.Generator, *, device="cuda") -> dict:
+    """Random parameters with ``repro``'s scales and layout, each
+    layer's tensors drawn in fp32 on ``device`` and cast into their
+    slice of the stack."""
+    params = alloc_encdec(cfg, device=device)
+    common.normal_(params["embed"], generator, scale=0.02)
+    common.normal_(params["lm_head"], generator)
+    n_enc, n_dec = n_enc_dec(cfg)
+    for i in range(n_enc):
+        p = common.tree_index(params["enc"], i)
+        _init_attn(cfg, p["attn"], generator)
+        _init_mlp(cfg, p["mlp"], generator)
+    for i in range(n_dec):
+        p = common.tree_index(params["dec"], i)
+        _init_attn(cfg, p["self"], generator)
+        _init_attn(cfg, p["cross"], generator)
+        _init_mlp(cfg, p["mlp"], generator)
+    return params
+
+
+# -- blocks -------------------------------------------------------------------
+
+
+def _mha(cfg, p, xq, xkv, *, causal, positions=None):
+    """Prefill attention of ``xq`` into ``xkv`` (RoPE on both when
+    ``positions`` is given: self-attention), through
+    ``attention.attention``."""
+    hd = _hd(cfg)
+    b, sq, _ = xq.shape
+    sk = xkv.shape[1]
+    q = (xq @ p["wq"]).reshape(b, sq, cfg.n_heads, hd)
+    k = (xkv @ p["wk"]).reshape(b, sk, cfg.n_kv_heads, hd)
+    v = (xkv @ p["wv"]).reshape(b, sk, cfg.n_kv_heads, hd)
+    if positions is not None:
+        q = common.apply_rope(q, positions, cfg.rope_theta)
+        k = common.apply_rope(k, positions, cfg.rope_theta)
+    o = attn.attention(q, k, v, causal=causal, block_q=cfg.block_q)
+    return o.reshape(b, sq, -1) @ p["wo"]
+
+
+def _mlp(cfg, p, x):
+    h = common.rms_norm(x, p["ln_mlp"], cfg.norm_eps)
+    return common.swiglu(h, p["mlp"]["gate"], p["mlp"]["up"],
+                         p["mlp"]["down"])
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, device=device)[None].expand(b, s)
+
+
+def encode(cfg, params, src_embeds):
+    """Encoder forward: non-causal self-attention with RoPE over the
+    frame embeddings -> memory (B, L_src, d_model), final-normed."""
+    x = src_embeds.to(cfg.torch_dtype)
+    pos = _positions(x.shape[0], x.shape[1], x.device)
+    n_enc, _ = n_enc_dec(cfg)
+    for i in range(n_enc):
+        p = common.tree_index(params["enc"], i)
+        h = common.rms_norm(x, p["ln_attn"], cfg.norm_eps)
+        x = x + _mha(cfg, p["attn"], h, h, causal=False, positions=pos)
+        x = x + _mlp(cfg, p, x)
+    return common.rms_norm(x, params["ln_enc"], cfg.norm_eps)
+
+
+def _dec_block(cfg, p, x, memory, pos):
+    h = common.rms_norm(x, p["ln_self"], cfg.norm_eps)
+    x = x + _mha(cfg, p["self"], h, h, causal=True, positions=pos)
+    h = common.rms_norm(x, p["ln_cross"], cfg.norm_eps)
+    x = x + _mha(cfg, p["cross"], h, memory, causal=False)
+    return x + _mlp(cfg, p, x)
+
+
+def decoder_logits(cfg, params, memory, tokens):
+    """Teacher-forced decoder over ``tokens`` (B, S) against the encoder
+    ``memory`` -> logits (B, S, V). Plain PyTorch, differentiable."""
+    x = common.embedding_lookup(params["embed"], tokens)
+    pos = _positions(x.shape[0], x.shape[1], x.device)
+    _, n_dec = n_enc_dec(cfg)
+    for i in range(n_dec):
+        x = _dec_block(cfg, common.tree_index(params["dec"], i), x, memory,
+                       pos)
+    x = common.rms_norm(x, params["ln_dec"], cfg.norm_eps)
+    return x @ params["lm_head"]
+
+
+def loss_fn(cfg, params, batch):
+    """(loss, metrics) of one batch {"src_embeds", "tokens", "targets",
+    "mask"}: cross-entropy + max-z over the decoder's logits. Remat is
+    not ported."""
+    memory = encode(cfg, params, batch["src_embeds"])
+    logits = decoder_logits(cfg, params, memory, batch["tokens"])
+    return common.cross_entropy_max_z(logits, batch["targets"],
+                                      batch.get("mask"),
+                                      z_weight=cfg.max_z_weight)
+
+
+# -- serving ------------------------------------------------------------------
+
+
+def init_cache(cfg, batch_size: int, max_len: int, src_len: int, *,
+               device="cuda") -> dict:
+    """The serving cache, ``repro``'s tree: ``{"self": KVCache stacked
+    (n_dec, B, max_len, Hk, dh), "cross_k", "cross_v": (n_dec, B,
+    src_len, Hk, dh), "src_len": (B,) int32}``."""
+    hd = _hd(cfg)
+    _, n_dec = n_enc_dec(cfg)
+
+    def zeros():
+        return torch.zeros((n_dec, batch_size, src_len, cfg.n_kv_heads, hd),
+                           dtype=cfg.torch_dtype, device=device)
+    return {"self": attn.KVCache.init(n_dec, batch_size, max_len,
+                                      cfg.n_kv_heads, hd,
+                                      dtype=cfg.torch_dtype, device=device),
+            "cross_k": zeros(), "cross_v": zeros(),
+            "src_len": torch.zeros((batch_size,), dtype=torch.int32,
+                                   device=device)}
+
+
+@torch.no_grad()
+def prefill(cfg, params, src_embeds, bos_token, cache):
+    """Encode the source, write every decoder layer's cross K/V into the
+    (fresh) cache in place, then run the BOS token (B, 1) -> (logits
+    (B, V), cache). The source may be shorter than the cache's cross
+    capacity: ``src_len`` masks the rest."""
+    memory = encode(cfg, params, src_embeds)
+    hd = _hd(cfg)
+    b, sl, _ = memory.shape
+    cap = cache["cross_k"].shape[2]
+    if sl > cap:
+        raise ValueError(f"encdec prefill: source of {sl} frames vs cross "
+                         f"cache capacity {cap}")
+    _, n_dec = n_enc_dec(cfg)
+    for i in range(n_dec):
+        p = common.tree_index(params["dec"], i)["cross"]
+        cache["cross_k"][i, :, :sl] = (memory @ p["wk"]).reshape(
+            b, sl, cfg.n_kv_heads, hd)
+        cache["cross_v"][i, :, :sl] = (memory @ p["wv"]).reshape(
+            b, sl, cfg.n_kv_heads, hd)
+    cache["src_len"].fill_(sl)
+    return decode_step(cfg, params, bos_token, cache)
+
+
+@torch.no_grad()
+def decode_step(cfg, params, token, cache):
+    """One decoder token (B, 1) -> (logits (B, V), cache): the self
+    cache advanced in place, the cross cache read. RoPE positions come
+    from the per-slot self-cache lengths."""
+    x = common.embedding_lookup(params["embed"], token)
+    b = x.shape[0]
+    hd = _hd(cfg)
+    pos = cache["self"].length[0][:, None].clone()
+    _, n_dec = n_enc_dec(cfg)
+    for i in range(n_dec):
+        p = common.tree_index(params["dec"], i)
+        ps, pc = p["self"], p["cross"]
+        h = common.rms_norm(x, p["ln_self"], cfg.norm_eps)
+        q = (h @ ps["wq"]).reshape(b, 1, cfg.n_heads, hd)
+        k = (h @ ps["wk"]).reshape(b, 1, cfg.n_kv_heads, hd)
+        v = (h @ ps["wv"]).reshape(b, 1, cfg.n_kv_heads, hd)
+        q = common.apply_rope(q, pos, cfg.rope_theta)
+        k = common.apply_rope(k, pos, cfg.rope_theta)
+        sc = cache["self"].layer(i)
+        attn.cache_update(sc, k, v)
+        o = attn.decode_attention(q, sc)
+        x = x + o.reshape(b, 1, -1) @ ps["wo"]
+        h = common.rms_norm(x, p["ln_cross"], cfg.norm_eps)
+        q = (h @ pc["wq"]).reshape(b, 1, cfg.n_heads, hd)
+        cross = attn.KVCache(cache["cross_k"][i], cache["cross_v"][i],
+                             cache["src_len"])
+        o = attn.decode_attention(q, cross)
+        x = x + o.reshape(b, 1, -1) @ pc["wo"]
+        x = x + _mlp(cfg, p, x)
+    x = common.rms_norm(x, params["ln_dec"], cfg.norm_eps)
+    return (x @ params["lm_head"])[:, 0], cache

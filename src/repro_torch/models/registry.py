@@ -1,6 +1,6 @@
 """Model registry (port of ``repro.models.registry``): a family-uniform
-interface over the model zoo. The port has the transformer families
-(dense, MoE, VLM) and the SSM and hybrid families so far:
+interface over the model zoo (the transformer families dense, MoE and
+VLM, the SSM and hybrid families and the encoder-decoder):
 
   * ``init(seed) -> params``
   * ``loss(params, batch) -> (loss, metrics)`` (differentiable)
@@ -9,8 +9,11 @@ interface over the model zoo. The port has the transformer families
   * ``decode(params, token, cache) -> (logits, cache)``
   * ``prefill_extend(params, batch, cache) -> (logits, cache)``: one
     chunked-prefill segment (batch keys ``tokens``, ``start``,
-    ``seg_len``); None for sliding-window models and for the SSM and
-    hybrid families (a state fold has no resume offset)
+    ``seg_len``); None for sliding-window models, for the SSM and
+    hybrid families (a state fold has no resume offset) and for enc-dec
+  * ``logits(params, tokens) -> (B, S, V)``: the bare training-mode
+    forward, for losses that need per-token log-probs (the RL tier's
+    GRPO loss); None for enc-dec, whose forward needs more than tokens
 
 and the pipeline-stage partition of swarm serving (``make_stages``,
 ``stage_param_specs``). Every ``ModelDef`` and ``StageDef`` is bound to
@@ -24,7 +27,11 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.models import hybrid, transformer
+from repro_torch.models import encdec, hybrid, transformer
+
+# enc-dec decode shapes: one decoder token, cross-attention K/V over a
+# source of seq_len frames, and a modest self cache (the generated side)
+ENCDEC_SELF_CACHE = 4096
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +44,7 @@ class ModelDef:
     prefill: Callable[..., tuple[torch.Tensor, Any]]
     decode: Callable[..., tuple[torch.Tensor, Any]]
     prefill_extend: Callable[..., tuple[torch.Tensor, Any]] | None = None
+    logits: Callable[..., torch.Tensor] | None = None
 
 
 def _lm_def(cfg: ArchConfig, device: torch.device) -> ModelDef:
@@ -65,9 +73,40 @@ def _lm_def(cfg: ArchConfig, device: torch.device) -> ModelDef:
             cfg, params, batch["tokens"], cache, start=batch["start"],
             seg_len=batch["seg_len"])
 
+    def logits(params, tokens):
+        return transformer.forward(cfg, params, tokens)[0]
+
     return ModelDef(cfg, device, init, loss, init_cache, prefill, decode,
                     prefill_extend=(None if cfg.sliding_window
-                                    else prefill_extend))
+                                    else prefill_extend),
+                    logits=logits)
+
+
+def _encdec_def(cfg: ArchConfig, device: torch.device) -> ModelDef:
+    """The encoder-decoder: ``prefill`` takes {"src_embeds", "bos"}; the
+    self cache holds min(ENCDEC_SELF_CACHE, seq_len) cells and the cross
+    cache seq_len source frames (seq_len // 2 for a ``train`` shape)."""
+    def init(seed: int):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return encdec.init_encdec(cfg, gen, device=device)
+
+    def loss(params, batch):
+        return encdec.loss_fn(cfg, params, batch)
+
+    def init_cache(batch_size, shape: ShapeConfig, device=device):
+        src = shape.seq_len if shape.kind != "train" else shape.seq_len // 2
+        return encdec.init_cache(cfg, batch_size,
+                                 min(ENCDEC_SELF_CACHE, shape.seq_len), src,
+                                 device=device)
+
+    def prefill(params, batch, cache):
+        return encdec.prefill(cfg, params, batch["src_embeds"], batch["bos"],
+                              cache)
+
+    def decode(params, token, cache):
+        return encdec.decode_step(cfg, params, token, cache)
+
+    return ModelDef(cfg, device, init, loss, init_cache, prefill, decode)
 
 
 def _hybrid_def(cfg: ArchConfig, device: torch.device) -> ModelDef:
@@ -91,22 +130,22 @@ def _hybrid_def(cfg: ArchConfig, device: torch.device) -> ModelDef:
     def decode(params, token, cache):
         return hybrid.decode_step(cfg, params, token, cache)
 
-    return ModelDef(cfg, device, init, loss, init_cache, prefill, decode)
+    def logits(params, tokens):
+        return hybrid.forward(cfg, params, tokens)[0]
 
-
-def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-            "port has the dense, MoE, VLM, SSM and hybrid families; "
-            "enc-dec comes in a later slice")
+    return ModelDef(cfg, device, init, loss, init_cache, prefill, decode,
+                    logits=logits)
 
 
 def get_model(cfg: ArchConfig, device="cuda") -> ModelDef:
-    _check_ported(cfg)
+    device = torch.device(device)
+    if cfg.family in ("dense", "moe", "vlm"):
+        return _lm_def(cfg, device)
+    if cfg.family == "encdec":
+        return _encdec_def(cfg, device)
     if cfg.family in ("ssm", "hybrid"):
-        return _hybrid_def(cfg, torch.device(device))
-    return _lm_def(cfg, torch.device(device))
+        return _hybrid_def(cfg, device)
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 # -- pipeline-stage partition (swarm serving) ---------------------------------
@@ -157,7 +196,6 @@ def make_stages(cfg: ArchConfig, k_stages: int,
         raise ValueError(
             f"stage partition unsupported for family {cfg.family!r} "
             "(only dense/moe/vlm)")
-    _check_ported(cfg)
     device = torch.device(device)
     stages = []
     for i, (lo, hi) in enumerate(transformer.stage_bounds(cfg, k_stages)):

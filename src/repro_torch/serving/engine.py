@@ -56,6 +56,11 @@ class Request:
     max_new_tokens: int = 32
     temperature: float = 0.0      # 0 = greedy (wave engine is greedy-only)
     out_tokens: list = dataclasses.field(default_factory=list)
+    # log-prob of each emitted token under the SAMPLING distribution
+    # (logits / temperature, before top-k / top-p; temperature 0 scores
+    # the unscaled softmax), 1:1 with out_tokens; filled only by an
+    # engine with capture_logprobs=True (the RL rollout path)
+    out_logprobs: list = dataclasses.field(default_factory=list)
     done: bool = False
     t_submit: float | None = None
     t_first: float | None = None  # first token available
@@ -121,6 +126,17 @@ def sample_tokens(logits: torch.Tensor, temps: torch.Tensor,
     return torch.where(temps > 0, sampled, greedy).to(torch.int32)
 
 
+def chosen_logprob(logits: torch.Tensor, toks: torch.Tensor,
+                   temps: torch.Tensor) -> torch.Tensor:
+    """Log-prob (B,) fp32 of ``toks`` (B,) under softmax(logits / temp)
+    per slot: the behaviour-policy score an RL trainer needs beside each
+    sampled token. A temperature-0 slot scores the unscaled
+    distribution."""
+    safe = torch.where(temps > 0, temps, 1.0)[:, None]
+    logp = torch.log_softmax(logits.float() / safe, dim=-1)
+    return logp.gather(-1, toks.long()[:, None])[:, 0]
+
+
 def copy_state_rows(cache: dict, sub: dict, slot: int, row: int) -> None:
     """Row ``row`` of every state leaf of ``sub`` (an SSM's states and
     conv rings, slot axis 1) into ``slot`` of ``cache``'s, in place."""
@@ -141,6 +157,13 @@ class _EngineBase:
     def __init__(self, model, params, *, batch_slots: int = 4,
                  max_len: int = 512, eos_id: int = 1, pad_id: int = 0,
                  bucket_prompts: bool = True):
+        if model.cfg.family == "encdec":
+            # the engines prefill token prompts; an enc-dec prefill takes
+            # a source and a BOS token (the JAX package's engines fail
+            # on it with a KeyError)
+            raise ValueError(f"{type(self).__name__}: serving unsupported "
+                             "for family 'encdec' (its prefill takes "
+                             "src_embeds and bos, not prompt tokens)")
         self.model = model
         self.params = params
         self.device = model.device
@@ -351,7 +374,7 @@ class ContinuousEngine(_EngineBase):
     def __init__(self, model, params, *, decode_chunk: int = 8,
                  top_k: int = 0, top_p: float = 0.0, seed: int = 0,
                  batch_admit: bool = True, overlap_admission: bool = False,
-                 **kw):
+                 capture_logprobs: bool = False, **kw):
         super().__init__(model, params, **kw)
         self.decode_chunk = decode_chunk
         self.top_k = top_k
@@ -366,6 +389,9 @@ class ContinuousEngine(_EngineBase):
         # prefill do not depend on placement or timing.
         self.overlap_admission = overlap_admission
         self._prepped: deque = deque()     # (req, scratch cache, logits)
+        # RL rollout mode: each sampled token's log-prob comes back with
+        # the chunk's token block (one more (N + 1, B) fp32 read)
+        self.capture_logprobs = capture_logprobs
         dev, b = self.device, self.slots
         self.cache = self._make_cache()
         self.tokens = torch.full((b, 1), self.pad_id, dtype=torch.int32,
@@ -376,6 +402,7 @@ class ContinuousEngine(_EngineBase):
         # first token of each slot admitted since the last drain (-1: none);
         # read back with the next chunk's token block
         self.first = torch.full((b,), -1, dtype=torch.int32, device=dev)
+        self.first_lp = torch.zeros((b,), dtype=torch.float32, device=dev)
         # per-slot sampling stream of the request it holds (None: greedy)
         self._gens: list[torch.Generator | None] = [None] * b
         self.stats["decode_chunks"] = 0
@@ -403,11 +430,15 @@ class ContinuousEngine(_EngineBase):
                 noise[s] = gumbel(g, vocab, self.device)
         return noise
 
-    def _chunk(self, n: int) -> torch.Tensor:
+    def _chunk(self, n: int):
         """N decode+sample steps; returns the (N, B) sampled-token block
-        (-1 for slots already done at step start). No host read."""
+        (-1 for slots already done at step start) and, when capturing,
+        the (N, B) fp32 log-probs of those tokens (0 where -1), else
+        None. No host read."""
         toks = torch.empty((n, self.slots), dtype=torch.int32,
                            device=self.device)
+        lps = torch.zeros((n, self.slots), device=self.device) \
+            if self.capture_logprobs else None
         for t in range(n):
             logits, self.cache = self.model.decode(self.params, self.tokens,
                                                    self.cache)
@@ -417,9 +448,12 @@ class ContinuousEngine(_EngineBase):
             newly = ~self.done & ((nxt == self.eos_id)
                                   | (self.remaining <= 0))
             toks[t] = torch.where(self.done, -1, nxt)
+            if lps is not None:
+                lps[t] = torch.where(self.done, 0.0,
+                                     chosen_logprob(logits, nxt, self.temps))
             self.done |= newly
             self.tokens = nxt[:, None]
-        return toks
+        return toks, lps
 
     # -- host-side scheduler --------------------------------------------------
 
@@ -499,9 +533,12 @@ class ContinuousEngine(_EngineBase):
             if temp > 0 else None
         noise = None if gen is None else \
             gumbel(gen, logits.shape[-1], self.device)[None]
-        first = sample_tokens(logits, torch.full((1,), temp,
-                                                 device=self.device),
-                              noise, self.top_k, self.top_p)[0]
+        temps = torch.full((1,), temp, device=self.device)
+        first = sample_tokens(logits, temps, noise, self.top_k,
+                              self.top_p)
+        if self.capture_logprobs:
+            self.first_lp[slot] = chosen_logprob(logits, first, temps)[0]
+        first = first[0]
         budget = self._budget(req) - 1
         self.tokens[slot, 0] = first
         self.done[slot] = True if budget <= 0 else first == self.eos_id
@@ -518,7 +555,11 @@ class ContinuousEngine(_EngineBase):
         self._gens[slot] = None
         self._release_slot(slot)
 
-    def _drain(self, first_np: np.ndarray, toks_np: np.ndarray) -> None:
+    def _drain(self, first_np: np.ndarray, toks_np: np.ndarray,
+               lps_np: np.ndarray | None = None) -> None:
+        """Append the read-back block to the active requests: row 0 of
+        ``lps_np`` holds the first tokens' log-probs, row t + 1 step
+        t's (None: no capture)."""
         now = time.perf_counter()
         for slot, req in enumerate(self.active):
             if req is None:
@@ -527,6 +568,8 @@ class ContinuousEngine(_EngineBase):
             if first_np[slot] >= 0:
                 first = int(first_np[slot])
                 req.out_tokens.append(first)
+                if lps_np is not None:
+                    req.out_logprobs.append(float(lps_np[0, slot]))
                 req.t_first = now
                 self.stats["tokens_out"] += 1
                 if first == self.eos_id or len(req.out_tokens) >= budget:
@@ -537,6 +580,8 @@ class ContinuousEngine(_EngineBase):
                 if tok < 0:      # slot was done before this step
                     break
                 req.out_tokens.append(tok)
+                if lps_np is not None:
+                    req.out_logprobs.append(float(lps_np[t + 1, slot]))
                 self.stats["tokens_out"] += 1
                 if tok == self.eos_id or len(req.out_tokens) >= budget:
                     self._release(slot, req)
@@ -565,12 +610,22 @@ class ContinuousEngine(_EngineBase):
             return 0
         self._before_chunk()
         n = self.decode_chunk
-        toks = self._chunk(n)
+        toks, lps = self._chunk(n)
         if self.overlap_admission:
             # the chunk is enqueued but not read back: admission
             # prefills ride the gap
             self._prep_admissions()
-        block = torch.cat([self.first[None], toks]).cpu().numpy()
+        block = torch.cat([self.first[None], toks])
+        lps_np = None
+        if lps is not None:
+            # one transfer: the fp32 log-probs ride beside the int32
+            # tokens as their bits, split again on the host
+            lp = torch.cat([self.first_lp[None], lps]).view(torch.int32)
+            both = torch.cat([block, lp], dim=1).cpu().numpy()
+            block, lps_np = both[:, :self.slots], \
+                both[:, self.slots:].view(np.float32)
+        else:
+            block = block.cpu().numpy()
         self.first.fill_(-1)
         self.stats["host_syncs"] += 1
         self.stats["decode_chunks"] += 1
@@ -578,7 +633,7 @@ class ContinuousEngine(_EngineBase):
         self.stats["total_slot_steps"] += n * self.slots
         self.stats["busy_slot_steps"] += int((block[1:] >= 0).sum())
         self._after_chunk(n)
-        self._drain(block[0], block[1:])
+        self._drain(block[0], block[1:], lps_np)
         return sum(r is not None for r in self.active)
 
 

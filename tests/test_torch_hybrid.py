@@ -208,15 +208,19 @@ def test_from_jax_cache_carries_a_paged_hybrid_cache():
 
 def test_registry_families_and_stages():
     """Both families build on cuda by default and on the CPU when asked;
-    enc-dec is still a later slice; the stage partition refuses both."""
+    enc-dec builds too, without a bare logits forward; the stage
+    partition refuses all three."""
     for arch in ARCHS:
         cfg = TCONFIGS[arch]
         assert registry.get_model(cfg).device.type == "cuda"
         assert registry.get_model(cfg, "cpu").prefill_extend is None
         with pytest.raises(ValueError, match="stage partition"):
             registry.make_stages(cfg.reduced(), 1, "cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        registry.get_model(TCONFIGS["seamless-m4t-medium"], "cpu")
+    enc = registry.get_model(TCONFIGS["seamless-m4t-medium"], "cpu")
+    assert enc.logits is None and enc.prefill_extend is None
+    with pytest.raises(ValueError, match="stage partition"):
+        registry.make_stages(TCONFIGS["seamless-m4t-medium"].reduced(), 1,
+                             "cpu")
 
 
 # -- serving ------------------------------------------------------------------

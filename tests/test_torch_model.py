@@ -115,5 +115,13 @@ def test_init_scales_and_layout():
 
 
 def test_other_families_raise():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tget_model(TCONFIGS["seamless-m4t-medium"].reduced(), "cpu")
+    """Enc-dec builds (its ModelDef has no bare logits forward); the
+    engines refuse it with ValueError, and an unknown family raises."""
+    from repro_torch.serving.engine import ContinuousEngine
+    model = tget_model(TCONFIGS["seamless-m4t-medium"].reduced(), "cpu")
+    assert model.cfg.family == "encdec" and model.logits is None
+    with pytest.raises(ValueError, match="encdec"):
+        ContinuousEngine(model, model.init(0), batch_slots=1, max_len=16)
+    with pytest.raises(ValueError, match="unknown family"):
+        tget_model(dataclasses.replace(TCONFIGS["intellect-1"].reduced(),
+                                       family="rnn"), "cpu")

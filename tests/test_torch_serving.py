@@ -157,7 +157,10 @@ def test_port_imports_neither_jax_nor_repro(tmp_path):
             "repro_torch.checkpointing.gossip, "
             "repro_torch.checkpointing.swarm, "
             "repro_torch.checkpointing.streaming, repro_torch.serving, "
-            "repro_torch.serving.swarm_serve\n"
+            "repro_torch.serving.swarm_serve, repro_torch.models.encdec, "
+            "repro_torch.rl, repro_torch.rl.buffer, repro_torch.rl.grpo, "
+            "repro_torch.rl.policy_pub, repro_torch.rl.rollout, "
+            "repro_torch.rl.driver, repro_torch.launch.rl\n"
             + bad + "assert not bad, bad\n\n"
             "def rank_modules(ctx):\n"
             "    " + bad.replace("\n", "\n    ") + "return bad\n\n"
@@ -211,9 +214,10 @@ def test_serve_main_paged_on_cpu(capsys):
 
 @pytest.mark.parametrize("argv", [["--arch", "seamless-m4t-medium"]])
 def test_serve_unported_paths_raise(argv):
-    """The family that is not ported yet (enc-dec) raises."""
+    """The family no engine serves (enc-dec: its prefill takes a source
+    and a BOS token) raises a typed ValueError naming it."""
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="encdec"):
         serve.main(["--device", "cpu", "--reduced", *argv])
 
 
