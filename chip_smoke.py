@@ -177,11 +177,34 @@ Phases, each of which raises on failure (nothing is caught):
    losses finite, peak under 70 GiB. Rollout tok/s, publish and adopt
    seconds and bytes are printed.
 
+15. the hybrid DiLoCo-FSDP train step and its sharded outer sync
+   (``repro_torch.launch.fsdp``): kernels 1-4 at the sharded hop's (1,
+   378,549,248) row, one row a call as each rank launches them, against
+   their plain versions and timed; internlm2-1.8b at full width, depth
+   6, bf16, on a (2, 1) ("data", "model") mesh of rank processes on the
+   card, the plan ``make_plan`` gives (parameters laid over 'model'),
+   4 x 512 tokens a worker, H = 4, 2 outer syncs with the int8 ring,
+   each rank ringing its shard over its DiLoCo group. Losses finite;
+   every sync's anchor on both ranks bitwise the port's
+   ``outer_sync_sim`` on the same stacked parameters (the same kernels);
+   each rank's codec launches ``codec_calls(2)`` a sync; in each window
+   of an outer step (inner phase, the simulator's check, the ranks'
+   sync) every process's peak of allocated bytes, summed, under 70 GiB
+   (the card's sampled used bytes printed beside). Then the same
+   step on a (1, 1) mesh, timed (median of 7 after 2 warm-ups, CUDA
+   events) and its peak allocated, beside its trace on fake tensors
+   (``launch.dryrun.run_custom``): FLOPs, HBM bytes, the bound, MFU
+   against 989 TFLOP/s, the predicted peak; the parameter plus optimizer
+   bytes must be equal in both. The trace and the production dry run of
+   internlm2-1.8b and dbrx-132b train_4k on the single-pod mesh run on
+   the host (fake world) after the timed step, not beside it; their
+   lines and seconds are printed.
+
 ``python3 chip_smoke.py --dist-slots N`` builds and runs phase 9 alone
 with N slots (how its slot count was sized), ``--swarm-only`` phase 10
 alone, ``--moe-only`` phase 11 alone, ``--ssm-only`` phase 12 alone,
-``--encdec-only`` phase 13 alone, ``--rl-only`` phase 14 alone; none
-prints a result.
+``--encdec-only`` phase 13 alone, ``--rl-only`` phase 14 alone,
+``--fsdp-only`` phase 15 alone; none prints a result.
 
 The last three lines are the kernels (JSON), the card (name, power
 limit) and the result.
@@ -200,6 +223,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -356,6 +380,19 @@ RL_COUNTS = ("outer_steps", "versions_published", "ledger",
              "stale_drop_fraction", "mean_accepted_lag", "adoptions",
              "bit_exact", "retired_fallbacks", "live_versions",
              "starved_phases")
+# phase 15: the hybrid DiLoCo-FSDP train step and its sharded outer sync
+# (``launch.fsdp``): internlm2-1.8b at full width, depth cut to 6 (as
+# phase 6: 757,098,496 parameters), bf16, a (2, 1) ("data", "model") mesh
+# of rank processes on the one card (DiLoCo group gloo, each FSDP group
+# one rank on NCCL), ``make_plan``'s plan (the sharded branch: 'model'
+# divides every dim), 4 sequences of 512 tokens a worker, H = 4, 2 outer
+# syncs, the int8 ring; then the same step on a (1, 1) mesh timed beside
+# its trace (``launch.dryrun.run_custom``), and the production dry run
+# of two single-pod train cells on the host (fake world, CPU)
+FSDP = {"arch": "internlm2-1.8b", "n_layers": 6, "mesh": (2, 1),
+        "seq_len": 512, "batch_per_worker": 4, "inner_steps": 4,
+        "outer_steps": 2, "warm": 2, "timed": 7}
+FSDP_DRYRUN = ("internlm2-1.8b", "dbrx-132b")
 # (B, S_max, Hk, G, dh, lengths): INTELLECT-1's attention at a long cache,
 # where the bytes rather than the latency chain should set the pace
 FD_LONG = (4, 8192, 8, 4, 128, [8192, 4096, 2048, 1])
@@ -4082,6 +4119,367 @@ def rl_phase() -> dict:
     return out
 
 
+# -- phase 15: the hybrid DiLoCo-FSDP train step -----------------------------
+
+
+def fsdp_config():
+    from repro_torch.launch.fsdp import FSDPConfig
+    f = FSDP
+    return FSDPConfig(f["arch"], n_layers=f["n_layers"], seq_len=f["seq_len"],
+                      batch_per_worker=f["batch_per_worker"],
+                      inner_steps=f["inner_steps"])
+
+
+def start_dryruns(workdir: Path) -> list:
+    """The production dry run's cells and phase 15's (1, 1) trace, each a
+    subprocess on the host (CPU, fake world), started at once."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    f = FSDP
+    cmds = [("trace", ["--arch", f["arch"], "--n-layers", str(f["n_layers"]),
+                       "--seq-len", str(f["seq_len"]), "--global-batch",
+                       str(f["batch_per_worker"]), "--mesh-shape", "1,1",
+                       "--no-sync"])]
+    cmds += [(arch, ["--arch", arch, "--shape", "train_4k", "--mesh",
+                     "single", "--out-dir", str(workdir)])
+             for arch in FSDP_DRYRUN]
+    procs = []
+    for name, args in cmds:
+        out = open(workdir / f"{name}.log", "w")
+        procs.append((name, time.perf_counter(), out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun"] + args,
+            stdout=out, stderr=subprocess.STDOUT, env=env)))
+    return procs
+
+
+def finish_dryruns(procs, workdir: Path) -> dict:
+    """Wait for ``start_dryruns``'s subprocesses; each must succeed.
+    Returns the trace's JSON and each cell's printed lines and seconds."""
+    out = {}
+    try:
+        for name, t0, log_file, proc in procs:
+            rc = proc.wait(timeout=900)
+            secs = time.perf_counter() - t0
+            log_file.close()
+            text = (workdir / f"{name}.log").read_text()
+            if rc != 0:
+                raise AssertionError(f"dry run {name} exited {rc}:\n"
+                                     f"{text[-3000:]}")
+            lines = [ln for ln in text.splitlines() if ln.startswith("[")]
+            out[name] = {"lines": lines, "wall_s": secs}
+            if name == "trace":
+                out[name]["json"] = json.loads(text.strip().splitlines()[-1])
+    finally:
+        for _, _, log_file, proc in procs:      # after a failure
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_file.close()
+    return out
+
+
+def sharded_codec_rows(n: int) -> dict:
+    """Kernels 1-4 at the sharded ring's hop: one (1, n) row a call, as
+    each rank launches them. Encodes: codes and counts exact, repeatable,
+    codebooks within ``check_hist``'s tolerance; decodes exact. Times
+    each beside its plain version and the library yardstick of
+    ``check_int8_codec``."""
+    from repro_torch.kernels import int8_quant as iq
+    from repro_torch.kernels import ref
+    shape = (1, n)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    anchor = torch.randn(shape, generator=gen, device="cuda").mul_(0.02)
+    theta = torch.randn(shape, generator=gen, device="cuda").mul_(1e-3)
+    theta.add_(anchor)
+    scale = torch.tensor([0.5], device="cuda")
+    out = {}
+
+    def encode(name, x, kernel, plain, in_bytes):
+        lo, width = ref.quant_params(x)
+        got, again = kernel(lo, width), kernel(lo, width)
+        want = plain(lo, width)
+        torch.cuda.synchronize()
+        err = check_hist(f"sharded {name} {shape}", x, lo, width, got, want,
+                         again)
+        codes = got[0]
+        del got, again, want
+        out[name] = codec_entry(
+            name, err, time_ms(lambda: kernel(lo, width), iters=10),
+            time_ms(lambda: plain(lo, width), iters=3),
+            n * in_bytes + 256 * 8,
+            time_ms(lambda: torch.bincount(codes[0], weights=x[0],
+                                           minlength=256), iters=3), shape)
+        return codes, ref.make_codebook(*kernel(lo, width)[1:], lo, width)
+
+    x = ref.pseudograd(anchor, theta)
+    encode("encode_hist", x, lambda lo, w: iq.encode_hist(x, lo, w),
+           lambda lo, w: iq.encode_hist_torch(x, lo, w), 5)
+    x = ref.pseudograd(anchor, theta, scale)
+    codes, book = encode(
+        "pseudograd_encode_hist", x,
+        lambda lo, w: iq.pseudograd_encode_hist(anchor, theta, lo, w,
+                                                scale=scale),
+        lambda lo, w: iq.pseudograd_encode_hist_torch(anchor, theta, lo, w,
+                                                      scale=scale), 9)
+    del x, anchor, theta
+    dec = iq.decode(codes, book)
+    torch.cuda.synchronize()
+    if not torch.equal(dec, iq.decode_torch(codes, book)):
+        raise AssertionError(f"sharded decode {shape} differs from its "
+                             f"plain version")
+    acc = torch.randn(shape, generator=gen, device="cuda")
+    want = acc + dec
+    del dec
+    got = iq.decode_add(codes, book, acc)
+    torch.cuda.synchronize()
+    if got.data_ptr() != acc.data_ptr() or not torch.equal(got, want):
+        raise AssertionError(f"sharded decode_add {shape} differs from its "
+                             f"plain version")
+    del want, got
+    for name, kernel, plain, library, nbytes in (
+            ("decode", lambda: iq.decode(codes, book),
+             lambda: iq.decode_torch(codes, book),
+             lambda: torch.gather(book, 1, codes.long()), 5),
+            ("decode_add", lambda: iq.decode_add(codes, book, acc),
+             lambda: iq.decode_add_torch(codes, book, acc),
+             lambda: acc.add_(torch.gather(book, 1, codes.long())), 9)):
+        out[name] = codec_entry(name, 0.0, time_ms(kernel, iters=10),
+                                time_ms(plain, iters=3), n * nbytes + 256 * 4,
+                                time_ms(library, iters=3), shape)
+    del codes, book, acc
+    torch.cuda.empty_cache()
+    for name in CODEC:
+        e = out[name]
+        log(f"kernel {name} at the sharded hop {shape}: max|err|="
+            f"{e['max_abs_err']:.3g}; {e['ms']:.3f} ms (bound "
+            f"{e['bound_ms']:.3f}, plain {e['plain_ms']:.3f}, library "
+            f"{e['library_ms']:.3f})")
+    return out
+
+
+class CardUsedPeak:
+    """The card's used bytes over all its processes (``mem_get_info``:
+    total - free, so allocator caches and contexts too), sampled every
+    ``period`` seconds on a thread while the block runs; ``peak`` is
+    their largest."""
+
+    def __init__(self, period: float = 0.02):
+        self.peak, self._period = 0, period
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+
+    def _sample(self) -> None:
+        while not self._stop.is_set():
+            free, total = torch.cuda.mem_get_info()
+            self.peak = max(self.peak, total - free)
+            self._stop.wait(self._period)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+
+
+def fsdp_windows(hist, held) -> list:
+    """Bytes allocated on the card at once in each window of each outer
+    step of phase 15's main path, bounded by every process's peak in the
+    window, summed: the inner phase (both ranks' inner peaks and what
+    the controller holds), the simulator's check (the ranks' peaks while
+    they copy out their parameters, which they hold until their sync,
+    and the controller's peak) and the ranks' sync (their sync peaks and
+    the expected anchor the controller holds)."""
+    out = []
+    for h, (ctrl, flat) in zip(hist, held):
+        out.append({"inner": sum(h["peak_bytes"]["inner"]) + ctrl["inner"],
+                    "sim": sum(flat) + ctrl["sim"],
+                    "sync": sum(h["peak_bytes"]["sync"]) + ctrl["sync"]})
+    return out
+
+
+def fsdp_phase() -> dict:
+    """Phase 15 (``FSDP``). The ranks' codec counts are set to 0 just
+    before the (2, 1) main path and read just after."""
+    from repro_torch.core import diloco as dl
+    from repro_torch.core import ring_reduce as rr
+    from repro_torch.core.sync_engine import SyncEngine, from_paths, leaves
+    from repro_torch.launch import fsdp
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.nesterov import NesterovState
+    from repro_torch.train import step as ts
+    f = FSDP
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    fc = fsdp_config()
+    cfg = fsdp.model_config(fc)
+    k = f["mesh"][0]
+    model = get_model(cfg, "cuda")
+    eng = SyncEngine.for_tree(model.param_shapes())
+    numel = eng.numel
+    hop_n = -(-numel // k)
+    codec = sharded_codec_rows(hop_n)
+    dcfg = dl.DiLoCoConfig(inner_steps=fc.inner_steps, quant=fsdp.QUANT)
+    params0 = model.init(fsdp.SEED)
+    st0 = dl.init_outer_state_sim(params0, dcfg, k)
+    # the simulator's outer state waits on the host between syncs: the
+    # card holds the ranks' syncs
+    sim = {"flats": (st0.anchor_flat.cpu(),
+                     eng.flatten(st0.opt.momentum).cpu()),
+           "residual": st0.residual, "step": st0.outer_step, "checks": [],
+           "held": []}
+    del params0, st0
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"fsdp phase start: controller allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB, card free "
+        f"{torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB")
+
+    def sim_state():
+        a, m = (x.cuda() for x in sim["flats"])
+        f32 = torch.float32
+        return dl.OuterState(eng.unflatten(a, dtype=f32),
+                             NesterovState(eng.unflatten(m, dtype=f32)),
+                             sim["residual"], sim["step"], a)
+
+    def on_sync(t, mesh):
+        # the simulator first, on the ranks' parameters (the ranks at
+        # rest), then the ranks' sync, each rank checking its new anchor
+        # against the simulator's bit for bit. What the controller holds
+        # in each window of the step, for ``fsdp_windows``
+        held = {"inner": torch.cuda.memory_allocated()}
+        torch.cuda.reset_peak_memory_stats()
+        thetas = torch.empty((k, numel), dtype=cfg.torch_dtype,
+                             device="cuda")
+        flat = mesh.call(fsdp.rank_flat_params, thetas)
+        stacked = from_paths(eng.paths, [
+            thetas[:, o:o + n].view((k,) + shape) for o, n, shape in
+            zip(eng.offsets, eng.sizes, eng.shapes)])
+        st = dl.outer_sync_sim(stacked, sim_state(), dcfg)[1]
+        expected = st.anchor_flat
+        sim.update(flats=(expected.cpu(),
+                          eng.flatten(st.opt.momentum).cpu()),
+                   residual=st.residual, step=st.outer_step)
+        del stacked, thetas, st
+        gc.collect()
+        torch.cuda.empty_cache()
+        held.update(sim=torch.cuda.max_memory_allocated(),
+                    sync=torch.cuda.memory_allocated())
+        sim["held"].append((held, [r["peak_bytes"] for r in flat]))
+        res = mesh.call(fsdp.rank_sync, expected)
+        del expected
+        torch.cuda.empty_cache()
+        if not all(r["anchor_equal"] for r in res):
+            raise AssertionError(f"fsdp sync {t}: a rank's anchor differs "
+                                 f"from outer_sync_sim's")
+        sim["checks"].append(t)
+        for r in res:
+            want = rr.codec_calls(k)
+            if r["launches"] != want or r["calls"] != want:
+                raise AssertionError(f"fsdp sync {t}: a rank launched "
+                                     f"{r['launches']} (calls {r['calls']}),"
+                                     f" want codec_calls({k}) = {want}")
+        return res
+
+    with make_mesh(f["mesh"], ("data", "model"), local_backend="nccl",
+                   timeout=600.0) as mesh:
+        mesh.call(ts.rank_codec_counts, True)
+        t0 = time.perf_counter()
+        with CardUsedPeak() as used:
+            info, hist = fsdp.run(mesh, fc, f["outer_steps"], on_sync)
+        main_wall = time.perf_counter() - t0
+        ranks = mesh.call(ts.rank_codec_counts)
+        mesh.call(fsdp.rank_drop)
+    windows = fsdp_windows(hist, sim["held"])
+    peak = max(w for step in windows for w in step.values())
+    gib = [{n: round(w / 2**30, 2) for n, w in step.items()}
+           for step in windows]
+    log(f"fsdp main path memory (allocated, GiB; every process's peak in "
+        f"a window, summed): {gib}; card used (all processes, sampled; "
+        f"allocator caches too) {used.peak / 2**30:.2f} GiB")
+    if peak >= PEAK_LIMIT_BYTES:
+        raise AssertionError(f"fsdp main path peak {peak / 2**30:.2f} GiB")
+    launches = {n: sum(r["launches"][n] for r in ranks) for n in CODEC}
+    want = {n: f["outer_steps"] * k * c for n, c in rr.codec_calls(k).items()}
+    if launches != want:
+        raise AssertionError(f"fsdp: ranks launched {launches}, want {want}")
+    if sim["checks"] != list(range(f["outer_steps"])):
+        raise AssertionError(f"fsdp: syncs checked {sim['checks']}")
+    losses = [x for h in hist for v in h["losses"].values() for x in v]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"fsdp: losses {losses}")
+    plan = info["plan"]
+    del sim
+    gc.collect()
+    torch.cuda.empty_cache()
+    for h in hist:
+        log(f"fsdp step {h['outer_step']}: losses {json.dumps(h['losses'])} "
+            f"inner={h['inner_s'] * 1e3:.1f}ms sync={h['sync_s'] * 1e3:.1f}ms"
+            f" launches {json.dumps(h['launches'])}")
+    log(f"fsdp main path: {f['arch']} depth {f['n_layers']} params={numel} "
+        f"mesh {f['mesh']} plan diloco_axis={plan['diloco_axis']} "
+        f"batch_axes={plan['batch_axes']} rules={plan['rules']}; every "
+        f"sync's anchor on both ranks bitwise outer_sync_sim; launches "
+        f"{json.dumps(launches)} (= {f['outer_steps']} syncs x {k} ranks x "
+        f"codec_calls({k})); wall {main_wall:.1f}s")
+
+    # the same step on a (1, 1) mesh: timed, beside its trace
+    with make_mesh((1, 1), ("data", "model"), local_backend="nccl",
+                   timeout=600.0) as mesh:
+        built = mesh.call(fsdp.rank_build, fc, 1)[0]
+        timed = mesh.call(fsdp.rank_time_step, f["warm"], f["timed"])[0]
+        mesh.call(fsdp.rank_drop)
+    if timed["peak_bytes"] >= PEAK_LIMIT_BYTES:
+        raise AssertionError(f"fsdp (1, 1) step peak "
+                             f"{timed['peak_bytes'] / 2**30:.2f} GiB")
+    # the host's dry runs start only now: the step above is timed on an
+    # otherwise idle host
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    try:
+        dry = finish_dryruns(start_dryruns(workdir), workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    tr = dry["trace"]["json"]["train_step"]
+    if tr["memory"]["param_opt_bytes"] != built["param_opt_bytes"]:
+        raise AssertionError(f"fsdp: trace param+opt bytes "
+                             f"{tr['memory']['param_opt_bytes']} vs the "
+                             f"card's {built['param_opt_bytes']}")
+    ms = sorted(timed["ms"])[len(timed["ms"]) // 2]
+    rl = tr["roofline"]
+    mfu = rl["model_flops"] / (ms * 1e-3) / PEAK_FLOPS[torch.bfloat16]
+    roof = {"median_ms": ms, "ms": timed["ms"], "peak_bytes":
+            timed["peak_bytes"], "predicted_peak_bytes":
+            tr["memory"]["peak_live_bytes"], "param_opt_bytes":
+            built["param_opt_bytes"], "flops": rl["flops"],
+            "hbm_bytes": rl["hbm_bytes"], "model_flops": rl["model_flops"],
+            "bound_ms": rl["step_s"] * 1e3, "compute_ms": rl["compute_s"]
+            * 1e3, "memory_ms": rl["memory_s"] * 1e3,
+            "bottleneck": rl["bottleneck"], "mfu": mfu}
+    log(f"fsdp step on (1, 1): median {ms:.2f} ms of "
+        f"{[round(x, 2) for x in timed['ms']]}; trace: flops "
+        f"{rl['flops']:.4g}, hbm bytes {rl['hbm_bytes']:.4g} (unfused upper "
+        f"bound), bound {rl['step_s'] * 1e3:.2f} ms ({rl['bottleneck']}; "
+        f"compute {rl['compute_s'] * 1e3:.2f} ms); MFU = model_flops "
+        f"{rl['model_flops']:.4g} / measured / 989e12 = {mfu:.4f}; peak "
+        f"measured {timed['peak_bytes'] / 2**30:.2f} GiB vs predicted "
+        f"{tr['memory']['peak_live_bytes'] / 2**30:.2f} GiB; param+opt "
+        f"bytes {built['param_opt_bytes']} on both")
+    for arch in FSDP_DRYRUN:
+        for line in dry[arch]["lines"]:
+            log(f"dryrun {line}")
+        log(f"dryrun {arch}/train_4k/single: {dry[arch]['wall_s']:.1f}s "
+            f"(subprocess, host CPU)")
+    log(f"fsdp phase: {time.perf_counter() - t_phase:.1f}s")
+    return {"launches": launches, "codec": codec, "hop_shape": (1, hop_n),
+            "hist": hist, "memory": {"windows": windows,
+                                     "card_used": used.peak}, "roofline": roof,
+            "dryrun": {a: dry[a] for a in FSDP_DRYRUN}}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dist-slots", type=int, default=None,
@@ -4102,6 +4500,9 @@ def main(argv=None) -> None:
                          "the build), and print no result")
     ap.add_argument("--rl-only", action="store_true",
                     help="run only phase 14, the asynchronous RL tier "
+                         "(after the build), and print no result")
+    ap.add_argument("--fsdp-only", action="store_true",
+                    help="run only phase 15, the hybrid DiLoCo-FSDP step "
                          "(after the build), and print no result")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
@@ -4134,6 +4535,10 @@ def main(argv=None) -> None:
     if args.rl_only:
         rl_phase()
         log(f"phase 14 alone passed in {time.perf_counter() - t0:.1f}s")
+        return
+    if args.fsdp_only:
+        fsdp_phase()
+        log(f"phase 15 alone passed in {time.perf_counter() - t0:.1f}s")
         return
     kernels = ([check_flash_decode()] + check_int8_codec()
                + [check_flash_decode_paged()])
@@ -4251,6 +4656,19 @@ def main(argv=None) -> None:
         entry["rl_shapes"] = rl["kernels"][entry["name"]]
     for entry in kernels:
         entry["launches_rl"] = rl["main"]["launches"][entry["name"]]
+    del rl
+    gc.collect()
+    torch.cuda.empty_cache()
+    fs = fsdp_phase()
+    for entry in kernels[1:5]:
+        c = fs["codec"][entry["name"]]
+        entry.update(launches_sharded=fs["launches"][entry["name"]],
+                     sharded_hop_shape={"rows": 1, "n": fs["hop_shape"][1],
+                                        "dtype": "float32"},
+                     sharded_ms=c["ms"], sharded_plain_ms=c["plain_ms"],
+                     sharded_bound_ms=c["bound_ms"],
+                     sharded_library_ms=c["library_ms"],
+                     sharded_max_abs_err=c["max_abs_err"])
     log(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -17,7 +17,11 @@ fused first-hop transmit. No function here writes into an anchor,
 momentum or residual buffer: each outer step makes new ones, so a
 handle that keeps the anchor of its boundary keeps it unchanged.
 
-Two ways to run the outer step:
+Three ways to run the outer step:
+  * ``outer_sync`` — one worker's (one rank's) step: its own flat
+    pseudo-gradient through ``ring_reduce.ring_all_reduce`` over the
+    DiLoCo process group (the FSDP-sharded sync of ``train/step.py``'s
+    ``build_outer_sync`` runs it on each rank's shard);
   * ``outer_sync_sim`` — stage, reduce and apply in one call;
   * ``begin_outer_sync_sim`` / ``finish_outer_sync_sim`` — the
     overlapped outer sync: the begin stages the pseudo-gradients as a
@@ -33,8 +37,7 @@ the residual has one slot per interleaved anchor lineage.
 
 The distributed backend (``train/step.py``'s ``DistSyncBackend``) stages
 the same pseudo-gradients (``_sim_pseudograds``) into a ring of rank
-processes and returns the same ``OuterSyncHandle``. Not ported yet: the
-FSDP-sharded ``outer_sync`` (shard_map over a sharded anchor).
+processes and returns the same ``OuterSyncHandle``.
 """
 from __future__ import annotations
 
@@ -45,7 +48,7 @@ import torch
 
 from repro_torch.core import compression
 from repro_torch.core.ring_reduce import (RingConfig, RingSyncOp,
-                                          ring_wire_bytes)
+                                          ring_all_reduce, ring_wire_bytes)
 from repro_torch.core.sync_engine import SyncEngine, leaves, tree_map
 from repro_torch.kernels import ops as qops
 from repro_torch.optim.nesterov import NesterovSGD, NesterovState
@@ -208,6 +211,50 @@ def _fused_src_ok(cfg: DiLoCoConfig) -> bool:
     raw pseudo-gradient and the ring is int8."""
     return cfg.fused_sync and cfg.quant == "int8" and \
         not cfg.error_feedback
+
+
+# -- one worker's outer step over a process group ----------------------------
+
+
+def _pseudograd(params, state: OuterState, cfg: DiLoCoConfig):
+    """One worker's flat fp32 pseudo-gradient (+EF residual) off the
+    flat anchor. Returns (pg, new_residual, theta_flat, anchor_flat).
+    With a two-slot residual ((2, n): EF under the delayed overlap on
+    this synchronous path) the slot is ``outer_step % 2``."""
+    eng = SyncEngine.for_tree(params)
+    p_flat = eng.flatten(params)
+    a_flat = (state.anchor_flat if state.anchor_flat is not None
+              else eng.flatten(state.anchor))
+    pg = a_flat - p_flat
+    new_residual = state.residual
+    if cfg.error_feedback:
+        two_slot = state.residual.dim() == 2
+        slot = state.outer_step % 2
+        pg = pg + (state.residual[slot] if two_slot else state.residual)
+        deq = _ef_roundtrip(pg[None], cfg)[0]
+        if two_slot:
+            new_residual = state.residual.clone()
+            new_residual[slot] = pg - deq
+        else:
+            new_residual = pg - deq
+        pg = deq
+    return pg, new_residual, p_flat, a_flat
+
+
+def outer_sync(params, state: OuterState, cfg: DiLoCoConfig, group,
+               ring_order: Sequence[int] | None = None,
+               weight: torch.Tensor | None = None):
+    """One DiLoCo outer step for this worker: its pseudo-gradient through
+    the ring over ``group`` (the DiLoCo process group), then the shared
+    Nesterov step. Returns (params', state'); the new anchor and
+    momentum trees are views of the new flat buffers."""
+    pg, new_residual, p_flat, a_flat = _pseudograd(params, state, cfg)
+    fused_src = (a_flat, p_flat) if _fused_src_ok(cfg) else None
+    reduced = ring_all_reduce(pg, group, ring_order=ring_order,
+                              cfg=cfg.ring, weight=weight,
+                              fused_src=fused_src)
+    del pg, p_flat, fused_src
+    return _apply_outer(reduced, params, state, cfg, new_residual, a_flat)
 
 
 def outer_sync_sim(stacked_params, state: OuterState, cfg: DiLoCoConfig,

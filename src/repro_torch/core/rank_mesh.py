@@ -73,6 +73,24 @@ class RankContext:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def device_mesh(self, dax: str | None = None,
+                    local_backend: str = "gloo"):
+        """The ``DeviceMesh`` over this world (made once per (dax,
+        backend); collective: every rank must ask in the same order).
+        Groups along ``dax`` (the DiLoCo axis) are gloo, the others
+        ``local_backend``: NCCL needs one card per rank of a group, so
+        on one card it serves only groups of one rank."""
+        key = ("device_mesh", dax, local_backend)
+        if key not in self.state:
+            from torch.distributed.device_mesh import init_device_mesh
+            override = {a: ("gloo" if a == dax else local_backend)
+                        for a in self.shape}
+            self.state[key] = init_device_mesh(
+                self.device.type, tuple(self.shape.values()),
+                mesh_dim_names=tuple(self.shape),
+                backend_override=override)
+        return self.state[key]
+
 
 def axes_index(shape: dict[str, int], axes: Sequence[str],
                coords: dict[str, int]) -> int:

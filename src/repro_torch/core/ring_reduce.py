@@ -32,14 +32,16 @@ makes ``nb`` fused-encode, ``nb*(k-1)`` encode, ``nb*(k-1)`` decode_add
 and ``nb*k`` decode calls on the fused main path (``codec_calls``, hop
 by hop ``hop_codec_calls``). The accumulator is updated in place.
 ``chunk_norms`` is the admission layer's per-chunk norm sideband,
-computed in fp64 on the rows' own device. The distributed ring, one
-rank process per position, runs the same hop bodies
-(``train/step.py``'s ``DistRingSyncOp``); the reference's in-region
-``ring_all_reduce`` has no counterpart.
+computed in fp64 on the rows' own device. The distributed rings run
+the same hop bodies at one ring position: ``train/step.py``'s
+``DistRingSyncOp`` (a hop per command to a mesh of rank processes) and
+``ring_all_reduce`` (the whole ring inside one rank, over a process
+group: the sharded outer sync's, one ring per shard).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Sequence
 
 import numpy as np
@@ -414,6 +416,157 @@ def simulate_ring_all_reduce(xs: torch.Tensor,
     hops in one call (``RingSyncOp`` run to its end). Returns (k, D)
     results, identical across workers."""
     return RingSyncOp(xs, ring_order, cfg, weights, fused_src).finish()
+
+
+# -- the ring inside one rank, over a process group --------------------------
+
+# (device type, nbytes) -> (send, recv) host buffers of the staged
+# exchange, kept for reuse (one pair per hop size a process has used)
+_STAGING: dict = {}
+_ALIGN = 16          # bytes: each staged payload part starts on this boundary
+
+
+def _staged(device, nbytes: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(send, recv) host buffers of ``nbytes``; pinned for a card."""
+    key = (device.type, nbytes)
+    if key not in _STAGING:
+        pin = device.type == "cuda"
+        _STAGING[key] = tuple(torch.empty(nbytes, dtype=torch.uint8,
+                                          pin_memory=pin)
+                              for _ in range(2))
+    return _STAGING[key]
+
+
+def staged_shift(payload, group, nxt: int, prv: int, timeout=None,
+                 times: dict | None = None):
+    """The ring's shift through host buffers: pack ``payload`` (a tuple
+    of tensors on one device) into one send buffer, exchange it with
+    ``batch_isend_irecv`` (send to global rank ``nxt``, receive global
+    rank ``prv``'s buffer of the same layout) and unpack copies on the
+    payload's device. ``times``, if given, gains the seconds of the
+    pack (``d2h_s``), the wire (``wire_s``) and the unpack (``h2d_s``)."""
+    import torch.distributed as dist
+    parts = [p.contiguous() for p in payload]
+    device = parts[0].device
+    sizes = [p.numel() * p.element_size() for p in parts]
+    offsets = np.cumsum([0] + [-(-n // _ALIGN) * _ALIGN
+                               for n in sizes]).tolist()
+    t0 = time.perf_counter()
+    send, recv = _staged(device, offsets[-1])
+    for p, off, n in zip(parts, offsets, sizes):
+        send[off:off + n].copy_(p.reshape(-1).view(torch.uint8))
+    t1 = time.perf_counter()
+    for w in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send, nxt, group),
+            dist.P2POp(dist.irecv, recv, prv, group)]):
+        w.wait() if timeout is None else w.wait(timeout)
+    t2 = time.perf_counter()
+    got = recv.to(device) if device.type == "cuda" else recv.clone()
+    out = tuple(got[off:off + n].view(p.dtype).view(p.shape)
+                for p, off, n in zip(parts, offsets, sizes))
+    if times is not None:
+        times["d2h_s"] += t1 - t0
+        times["wire_s"] += t2 - t1
+        times["h2d_s"] += time.perf_counter() - t2
+    return out
+
+
+def p2p_shift(payload, group, nxt: int, prv: int):
+    """The ring's shift at one position over ``group``: send ``payload``
+    (a tuple of tensors) to global rank ``nxt`` and receive global rank
+    ``prv``'s, of the same shapes and dtypes (``batch_isend_irecv``).
+    Gloo with CUDA tensors goes through ``staged_shift``'s pinned host
+    buffers."""
+    import torch.distributed as dist
+    parts = [p.contiguous() for p in payload]
+    if parts[0].is_cuda and dist.get_backend(group) == "gloo":
+        return staged_shift(parts, group, nxt, prv)
+    recv = [torch.empty_like(p) for p in parts]
+    ops = []
+    for s, r in zip(parts, recv):
+        ops += [dist.P2POp(dist.isend, s, nxt, group),
+                dist.P2POp(dist.irecv, r, prv, group)]
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    return tuple(recv)
+
+
+def _group_weights(weight: torch.Tensor, group) -> torch.Tensor:
+    """(n,) every rank's weight, by group rank (gathered on the host for
+    gloo, which gathers no CUDA tensors)."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    src = weight.reshape(1)
+    if src.is_cuda and dist.get_backend(group) == "gloo":
+        src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts).to(weight.device)
+
+
+def ring_all_reduce(x: torch.Tensor, group,
+                    ring_order: Sequence[int] | None = None,
+                    cfg: RingConfig = RingConfig(),
+                    weight: torch.Tensor | None = None,
+                    fused_src=None) -> torch.Tensor:
+    """All-reduce (mean by default) of flat fp32 ``x`` over the ranks of
+    ``group`` (a process group: the DiLoCo group of one shard), this
+    rank at ring position ``inv(ring_order)[group rank]``.
+
+    The hops are the simulator's bodies (``_rs_hop_rows``,
+    ``_ag_init_rows``, ``_ag_hop_rows``) at this one position, the
+    shift a point-to-point exchange with the ring neighbours
+    (``p2p_shift``), the codec on this rank's device (kernels 1-4 on the
+    card, one row a call: ``codec_calls(n)`` per reduction). ``weight``
+    scales this rank's contribution and the mean divides by the group's
+    total, summed in group-rank order as the simulator sums its
+    ``weights``; ``fused_src=(anchor_flat, theta_flat)`` (``x == anchor
+    - theta``) routes the first hop's transmit through the fused
+    encode. So the result is the simulator's row for these inputs, bit
+    for bit."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    orig = x.shape[-1]
+    x = x.float()
+    if weight is None:
+        weight = torch.ones((), dtype=torch.float32, device=x.device)
+    weight = weight.float().reshape(())
+    total_w = _group_weights(weight, group).sum()
+    if n == 1:
+        return (x * weight / total_w.clamp_min(1e-20) if cfg.average
+                else x)
+    order = tuple(ring_order) if ring_order is not None else tuple(range(n))
+    if sorted(order) != list(range(n)):
+        raise ValueError(f"ring order {order} is not a permutation")
+    me = dist.get_group_rank(group, dist.get_rank())
+    pos = int(np.argsort(order)[me])
+    nxt = dist.get_global_rank(group, order[(pos + 1) % n])
+    prv = dist.get_global_rank(group, order[(pos - 1) % n])
+    nb = max(1, cfg.buckets)
+    acc, _, bsize = _pad_to_chunks(x[None] * weight.reshape(1, 1), n, nb)
+    fused = None
+    if fused_src is not None and cfg.fused and cfg.quant == "int8":
+        pad = acc.shape[-1] - orig
+        a_flat, t_rows = fused_src[0].float(), fused_src[1][None]
+        if pad:
+            a_flat, t_rows = F.pad(a_flat, (0, pad)), F.pad(t_rows, (0, pad))
+        fused = (a_flat, t_rows, weight.reshape(1))
+    positions = torch.tensor([pos], device=x.device)
+    geo = (n, bsize, nb, cfg)
+
+    def shift(payload):
+        return p2p_shift(payload, group, nxt, prv)
+    for s in range(n - 1):
+        _rs_hop_rows(s, acc, *geo, fused if s == 0 else None,
+                     positions=positions, shift=shift)
+    acc, payloads = _ag_init_rows(acc, *geo, positions=positions)
+    for s in range(n - 1):
+        acc, payloads = _ag_hop_rows(s, acc, payloads, *geo,
+                                     positions=positions, shift=shift)
+    out = acc[0, :orig]
+    if cfg.average:
+        out.div_(total_w.clamp_min(1e-20))
+    return out
 
 
 # -- chunk-norm sideband (contribution admission / localization) -------------

@@ -105,3 +105,29 @@ class SyncEngine:
         vals = [vec[o:o + n].view(shape).to(dt) for o, n, shape, dt in
                 zip(self.offsets, self.sizes, self.shapes, dtypes)]
         return from_paths(self.paths, vals)
+
+
+# -- per-shard flat view ------------------------------------------------------
+
+
+def shard_flat_size(shapes, specs, axis_sizes: dict) -> int:
+    """Per-RANK flat length of the concat of local parameter shards: the
+    sum over leaves of prod(shape) / prod(mesh axes named in the leaf's
+    spec). ``shapes`` is a tree of tensors (``meta`` ones will do) or
+    shape tuples, ``specs`` the matching tree of spec tuples
+    (``sharding.partition``), ``axis_sizes`` mesh axis -> size. The
+    sharded outer sync sizes the buffer it threads with it."""
+    if isinstance(specs, dict):
+        return sum(shard_flat_size(shapes[k], specs[k], axis_sizes)
+                   for k in specs)
+    shape = tuple(getattr(shapes, "shape", shapes))
+    size = int(torch.Size(shape).numel())
+    div = 1
+    for entry in specs:
+        if entry is None:
+            continue
+        for a in ((entry,) if isinstance(entry, str) else entry):
+            div *= int(axis_sizes.get(a, 1))
+    if size % div:
+        raise ValueError(f"spec {specs} does not divide leaf {shape}")
+    return size // div

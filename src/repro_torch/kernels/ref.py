@@ -45,6 +45,13 @@ class Quantized(NamedTuple):
             self.codebook.shape[0]
 
 
+def _misaligned(row: torch.Tensor) -> bool:
+    """``row`` starts off a 16-byte boundary. A fake tensor (the dry
+    run's trace) has no address: never."""
+    from torch._subclasses.fake_tensor import is_fake
+    return not is_fake(row) and row.data_ptr() % 16 != 0
+
+
 def row_std_mean(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row population (std, mean) of ``x`` (rows, n), (rows,) fp32
     each, so that a row's bits depend on its values only (the
@@ -58,7 +65,7 @@ def row_std_mean(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     mu = torch.empty_like(sigma)
     for r in range(x.shape[0]):
         row = x[r:r + 1]
-        if row.data_ptr() % 16:
+        if _misaligned(row):
             row = row.clone()
         sigma[r], mu[r] = torch.std_mean(row, dim=-1, correction=0)
     return sigma, mu

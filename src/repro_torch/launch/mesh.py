@@ -1,10 +1,23 @@
-"""Rank-mesh builders (port of ``repro.launch.mesh`` and
+"""Meshes (port of ``repro.launch.mesh`` and
 ``repro.compat.make_mesh``).
 
-Each builder spawns the mesh's rank processes (``core.rank_mesh``), so
-it is a function, never a module-level constant. The ranks run on the
-card unless ``device="cpu"`` is given. The production mesh
-(``make_production_mesh``) comes with the FSDP slice.
+``make_mesh`` / ``make_host_mesh`` spawn a mesh of rank processes
+(``core.rank_mesh``), so they are functions, never module-level
+constants; the ranks run on the card unless ``device="cpu"`` is given.
+Inside a rank, ``RankContext.device_mesh()`` is the ``DeviceMesh`` over
+the ranks' world that the FSDP train step and its sharded outer sync
+run on.
+
+``make_production_mesh`` is the production mesh of the dry run: a
+``DeviceMesh`` over an in-process FAKE world (torch's ``fake`` process
+group backend), where this process is rank 0 of 256 or 512 and every
+collective returns at once without moving data. It is the counterpart
+of the reference's ``--xla_force_host_platform_device_count=512``
+placeholder devices: enough to trace one rank's step on fake tensors
+(``analysis.op_cost``), nothing to run.
+
+Single pod: (16, 16) = (data, model), 256 ranks. Multi-pod: (2, 16, 16)
+= (pod, data, model), 512 ranks; the 'pod' axis is the DiLoCo axis.
 """
 from __future__ import annotations
 
@@ -25,3 +38,39 @@ def make_host_mesh(n: int = 1, axis: str = "data", device=None,
                    **kwargs) -> RankMesh:
     """A one-axis mesh of ``n`` ranks (tests, examples)."""
     return make_mesh((n,), (axis,), device, **kwargs)
+
+
+def fake_world(world_size: int) -> None:
+    """Make this process rank 0 of a fake world of ``world_size`` ranks
+    (once per process: a second call must ask for the same size)."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        if dist.get_world_size() != world_size:
+            raise RuntimeError(f"this process is in a world of "
+                               f"{dist.get_world_size()} ranks, not "
+                               f"{world_size}")
+        return
+    # torch's fake process group lives in its testing package; this is
+    # the one place the port imports it
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+
+
+def make_fake_mesh(shape: Sequence[int], axes: Sequence[str]):
+    """A CPU ``DeviceMesh`` of ``shape`` over ``axes`` in a fake world of
+    prod(shape) ranks (this process is rank 0). Build it outside
+    ``FakeTensorMode``: the mesh holds a real rank tensor."""
+    import math
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    n = math.prod(shape)
+    fake_world(n)
+    return DeviceMesh("cpu", torch.arange(n).reshape(tuple(shape)),
+                      mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_fake_mesh(shape, axes)

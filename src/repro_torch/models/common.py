@@ -30,6 +30,43 @@ def normal_(out: torch.Tensor, generator: torch.Generator, *,
     return out
 
 
+def stack_layer_axes(axes):
+    """Prepend the stacked ``"layers"`` dim to every axis tuple of a
+    layer's logical-axes tree (the reference's ``stack_layer_axes``)."""
+    if isinstance(axes, dict):
+        return {k: stack_layer_axes(v) for k, v in axes.items()}
+    return ("layers",) + tuple(axes)
+
+
+def fetch_top(params: dict, fetch) -> dict:
+    """``params`` with its top-level tensors (embedding, final norm,
+    head: everything that is not a layer tree) passed through ``fetch``
+    as one tree; unchanged when ``fetch`` is None."""
+    if fetch is None:
+        return params
+    top = fetch({k: v for k, v in params.items()
+                 if not isinstance(v, dict)})
+    return {**params, **top}
+
+
+def run_layer(fn, p: dict, *args, remat: bool = False, fetch=None):
+    """``fn(p, *args)`` for one layer's weights ``p``: ``fetch(p)``
+    first when given (the FSDP train step's gather of the layer), and
+    with ``remat`` under ``torch.utils.checkpoint``, so the layer's
+    activations, and the fetch, are recomputed in backward (the
+    reference's ``jax.checkpoint`` per layer). With neither it is the
+    plain call."""
+    if fetch is None and not remat:
+        return fn(p, *args)
+
+    def body(p, *args):
+        return fn(p if fetch is None else fetch(p), *args)
+    if remat:
+        from torch.utils.checkpoint import checkpoint
+        return checkpoint(body, p, *args, use_reentrant=False)
+    return body(p, *args)
+
+
 def tree_index(tree, i: int):
     """Row ``i`` of every tensor of a nested dict (views): one layer of
     a stacked layer tree."""

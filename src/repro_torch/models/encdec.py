@@ -77,6 +77,23 @@ def alloc_encdec(cfg, *, device="cuda") -> dict:
                 "mlp": _alloc_mlp(cfg, empty, (n_dec,))}}
 
 
+def encdec_axes(cfg) -> dict:
+    """The logical-axes twin of ``alloc_encdec`` (the reference's
+    ``init_encdec`` axes)."""
+    att = {"wq": ("embed", "heads"), "wk": ("embed", "heads"),
+           "wv": ("embed", "heads"), "wo": ("heads", "embed")}
+    mlp = {"gate": ("embed", "ff"), "up": ("embed", "ff"),
+           "down": ("ff", "embed")}
+    e = ("embed",)
+    return {"embed": ("vocab", "embed"), "ln_enc": e, "ln_dec": e,
+            "lm_head": ("embed", "vocab"),
+            "enc": common.stack_layer_axes(
+                {"ln_attn": e, "attn": att, "ln_mlp": e, "mlp": mlp}),
+            "dec": common.stack_layer_axes(
+                {"ln_self": e, "self": att, "ln_cross": e, "cross": att,
+                 "ln_mlp": e, "mlp": mlp})}
+
+
 def _init_attn(cfg, p: dict, generator: torch.Generator) -> None:
     for name in ("wq", "wk", "wv"):
         common.normal_(p[name], generator)
@@ -140,17 +157,25 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None].expand(b, s)
 
 
-def encode(cfg, params, src_embeds):
+def _enc_block(cfg, p, x, pos):
+    h = common.rms_norm(x, p["ln_attn"], cfg.norm_eps)
+    x = x + _mha(cfg, p["attn"], h, h, causal=False, positions=pos)
+    return x + _mlp(cfg, p, x)
+
+
+def encode(cfg, params, src_embeds, *, remat=False, fetch=None):
     """Encoder forward: non-causal self-attention with RoPE over the
-    frame embeddings -> memory (B, L_src, d_model), final-normed."""
+    frame embeddings -> memory (B, L_src, d_model), final-normed.
+    ``remat`` / ``fetch`` per layer: ``common.run_layer``."""
     x = src_embeds.to(cfg.torch_dtype)
     pos = _positions(x.shape[0], x.shape[1], x.device)
     n_enc, _ = n_enc_dec(cfg)
+
+    def layer(p, x):
+        return _enc_block(cfg, p, x, pos)
     for i in range(n_enc):
-        p = common.tree_index(params["enc"], i)
-        h = common.rms_norm(x, p["ln_attn"], cfg.norm_eps)
-        x = x + _mha(cfg, p["attn"], h, h, causal=False, positions=pos)
-        x = x + _mlp(cfg, p, x)
+        x = common.run_layer(layer, common.tree_index(params["enc"], i), x,
+                             remat=remat, fetch=fetch)
     return common.rms_norm(x, params["ln_enc"], cfg.norm_eps)
 
 
@@ -162,25 +187,33 @@ def _dec_block(cfg, p, x, memory, pos):
     return x + _mlp(cfg, p, x)
 
 
-def decoder_logits(cfg, params, memory, tokens):
+def decoder_logits(cfg, params, memory, tokens, *, remat=False, fetch=None):
     """Teacher-forced decoder over ``tokens`` (B, S) against the encoder
-    ``memory`` -> logits (B, S, V). Plain PyTorch, differentiable."""
+    ``memory`` -> logits (B, S, V). Plain PyTorch, differentiable;
+    ``remat`` / ``fetch`` per layer: ``common.run_layer``."""
     x = common.embedding_lookup(params["embed"], tokens)
     pos = _positions(x.shape[0], x.shape[1], x.device)
     _, n_dec = n_enc_dec(cfg)
+
+    def layer(p, x, memory):
+        return _dec_block(cfg, p, x, memory, pos)
     for i in range(n_dec):
-        x = _dec_block(cfg, common.tree_index(params["dec"], i), x, memory,
-                       pos)
+        x = common.run_layer(layer, common.tree_index(params["dec"], i), x,
+                             memory, remat=remat, fetch=fetch)
     x = common.rms_norm(x, params["ln_dec"], cfg.norm_eps)
     return x @ params["lm_head"]
 
 
-def loss_fn(cfg, params, batch):
+def loss_fn(cfg, params, batch, *, remat=False, fetch=None):
     """(loss, metrics) of one batch {"src_embeds", "tokens", "targets",
-    "mask"}: cross-entropy + max-z over the decoder's logits. Remat is
-    not ported."""
-    memory = encode(cfg, params, batch["src_embeds"])
-    logits = decoder_logits(cfg, params, memory, batch["tokens"])
+    "mask"}: cross-entropy + max-z over the decoder's logits. ``remat``
+    checkpoints each layer; ``fetch`` maps each layer's weights (and the
+    top-level ones) before use (``common.run_layer``)."""
+    params = common.fetch_top(params, fetch)
+    memory = encode(cfg, params, batch["src_embeds"], remat=remat,
+                    fetch=fetch)
+    logits = decoder_logits(cfg, params, memory, batch["tokens"],
+                            remat=remat, fetch=fetch)
     return common.cross_entropy_max_z(logits, batch["targets"],
                                       batch.get("mask"),
                                       z_weight=cfg.max_z_weight)

@@ -76,6 +76,24 @@ def alloc_hybrid(cfg, *, device="cuda") -> dict:
     return params
 
 
+def hybrid_axes(cfg) -> dict:
+    """The logical-axes twin of ``alloc_hybrid`` (the reference's
+    ``init_hybrid`` axes)."""
+    axes = {"embed": ("vocab", "embed"), "ln_f": ("embed",)}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    axes["mamba"] = common.stack_layer_axes(
+        {"ln": ("embed",), "mamba": ssm.mamba2_axes()})
+    if cfg.attn_every:
+        axes["shared"] = {
+            "ln_attn": (None, "embed"), "wq": ("embed", "heads"),
+            "wk": ("embed", "heads"), "wv": ("embed", "heads"),
+            "wo": ("heads", "embed"), "ln_mlp": (None, "embed"),
+            "mlp": {"gate": ("embed", "ff"), "up": ("embed", "ff"),
+                    "down": ("ff", "embed")}}
+    return axes
+
+
 def layer_params(params: dict, i: int) -> dict:
     """Mamba layer ``i``'s views of the stacked tensors."""
     return common.tree_index(params["mamba"], i)
@@ -137,40 +155,53 @@ def _head(cfg, params, x):
     return x @ head
 
 
-def forward(cfg, params, tokens, *, collect_state=False, prompt_len=None):
+def forward(cfg, params, tokens, *, collect_state=False, prompt_len=None,
+            remat=False, fetch=None):
     """Training forward (and, with ``collect_state``, the prefill's).
-    Plain PyTorch, differentiable; remat is not ported.
+    Plain PyTorch, differentiable.
 
     ``prompt_len``: (B,) true lengths of a right-padded serving prefill
     (threaded into the SSD mask, see ``ssm.apply_mamba2``). Returns
     (logits (B, S, V), (per-layer SSMStates, per-application (k, v)))
-    with ``collect_state``, else (logits, None)."""
+    with ``collect_state``, else (logits, None). ``remat`` checkpoints
+    each Mamba layer and each application of the shared block;
+    ``fetch`` maps their weights (and the top-level ones) before use
+    (``common.run_layer``)."""
+    params = common.fetch_top(params, fetch)
     x = common.embedding_lookup(params["embed"], tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     scfg, ae = ssm_cfg(cfg), cfg.attn_every
     new_states, kvs = [], []
-    for i in range(cfg.n_layers):
-        p = layer_params(params, i)
+
+    def mamba_layer(p, x):
         h = common.rms_norm(x, p["ln"], cfg.norm_eps)
         out, new_st = ssm.apply_mamba2(p["mamba"], h, scfg,
                                        return_state=collect_state,
                                        prompt_len=prompt_len)
-        x = x + out
+        return x + out, new_st
+
+    def shared(p, x, app):
+        return _shared_attn_apply(cfg, p, x, app, positions=positions)
+    for i in range(cfg.n_layers):
+        x, new_st = common.run_layer(mamba_layer, layer_params(params, i),
+                                     x, remat=remat, fetch=fetch)
         new_states.append(new_st)
         if ae and (i + 1) % ae == 0:
-            x, kv = _shared_attn_apply(cfg, params["shared"], x,
-                                       (i + 1) // ae - 1,
-                                       positions=positions)
+            x, kv = common.run_layer(shared, params["shared"], x,
+                                     (i + 1) // ae - 1, remat=remat,
+                                     fetch=fetch)
             kvs.append(kv)
     x = common.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = _head(cfg, params, x)
     return logits, ((new_states, kvs) if collect_state else None)
 
 
-def loss_fn(cfg, params, batch):
-    """(loss, metrics) of one batch {"tokens", "targets", "mask"}."""
-    logits, _ = forward(cfg, params, batch["tokens"])
+def loss_fn(cfg, params, batch, *, remat=False, fetch=None):
+    """(loss, metrics) of one batch {"tokens", "targets", "mask"};
+    ``remat`` / ``fetch``: see ``forward``."""
+    logits, _ = forward(cfg, params, batch["tokens"], remat=remat,
+                        fetch=fetch)
     return common.cross_entropy_max_z(logits, batch["targets"],
                                       batch.get("mask"),
                                       z_weight=cfg.max_z_weight)

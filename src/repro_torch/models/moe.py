@@ -54,6 +54,19 @@ def alloc_moe(empty, lead: tuple, d_model: int, d_expert: int,
     return p
 
 
+def moe_axes(n_shared: int) -> dict:
+    """Logical axes of one layer's ``alloc_moe`` subtree (the
+    reference's ``init_moe`` axes)."""
+    p = {"router": ("embed", None),
+         "experts": {"gate": ("experts", "embed", "ff"),
+                     "up": ("experts", "embed", "ff"),
+                     "down": ("experts", "ff", "embed")}}
+    if n_shared:
+        p["shared"] = {"gate": ("embed", "ff"), "up": ("embed", "ff"),
+                       "down": ("ff", "embed")}
+    return p
+
+
 def init_moe(p: dict, generator: torch.Generator, d_model: int,
              d_expert: int, n_shared: int) -> None:
     """Fill one layer's MoE tensors (views) with ``repro``'s scales:

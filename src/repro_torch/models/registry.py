@@ -3,7 +3,15 @@ interface over the model zoo (the transformer families dense, MoE and
 VLM, the SSM and hybrid families and the encoder-decoder):
 
   * ``init(seed) -> params``
-  * ``loss(params, batch) -> (loss, metrics)`` (differentiable)
+  * ``axes() -> tree of tuples``: each parameter's logical axis names,
+    the reference's ``eval_axes(init)`` tree (``sharding.partition``
+    maps them to layouts); ``param_shapes()`` the abstract parameter
+    tree (``meta`` tensors)
+  * ``loss(params, batch, remat=False, fetch=None) -> (loss, metrics)``
+    (differentiable; ``remat`` checkpoints each layer, ``fetch`` maps
+    each layer's weights before use: ``common.run_layer``)
+  * ``input_specs(shape) -> batch of meta tensors``: the reference's
+    input shapes and dtypes of a shape cell (the dry run)
   * ``init_cache(batch_size, shape) -> cache``
   * ``prefill(params, batch, cache) -> (logits, cache)``
   * ``decode(params, token, cache) -> (logits, cache)``
@@ -22,6 +30,7 @@ one device; caches are written in place.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
@@ -43,8 +52,47 @@ class ModelDef:
     init_cache: Callable[..., Any]
     prefill: Callable[..., tuple[torch.Tensor, Any]]
     decode: Callable[..., tuple[torch.Tensor, Any]]
+    axes: Callable[[], Any]
+    param_shapes: Callable[[], Any]
+    input_specs: Callable[[ShapeConfig], dict]
     prefill_extend: Callable[..., tuple[torch.Tensor, Any]] | None = None
     logits: Callable[..., torch.Tensor] | None = None
+
+
+def _meta(dtype, *shape) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _lm_input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """Decoder-only inputs; a VLM's F frontend positions come out of the
+    token count (``repro.models.registry._lm_input_specs``)."""
+    b, s, nf = shape.global_batch, shape.seq_len, cfg.n_frontend
+    i32 = torch.int32
+    if shape.kind == "decode":
+        return {"token": _meta(i32, b, 1)}
+    specs = {"tokens": _meta(i32, b, s - nf)}
+    if shape.kind == "train":
+        specs["targets"] = _meta(i32, b, s - nf)
+        specs["mask"] = _meta(torch.float32, b, s - nf)
+    if nf:
+        specs["frontend"] = _meta(cfg.torch_dtype, b, nf, cfg.d_model)
+    return specs
+
+
+def _encdec_input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """Enc-dec inputs: a train cell splits seq_len between the source
+    frames and the target tokens."""
+    b, s, i32 = shape.global_batch, shape.seq_len, torch.int32
+    if shape.kind == "train":
+        half = s // 2
+        return {"src_embeds": _meta(cfg.torch_dtype, b, half, cfg.d_model),
+                "tokens": _meta(i32, b, half),
+                "targets": _meta(i32, b, half),
+                "mask": _meta(torch.float32, b, half)}
+    if shape.kind == "prefill":
+        return {"src_embeds": _meta(cfg.torch_dtype, b, s, cfg.d_model),
+                "bos": _meta(i32, b, 1)}
+    return {"token": _meta(i32, b, 1)}
 
 
 def _lm_def(cfg: ArchConfig, device: torch.device) -> ModelDef:
@@ -52,8 +100,9 @@ def _lm_def(cfg: ArchConfig, device: torch.device) -> ModelDef:
         gen = torch.Generator(device=device).manual_seed(seed)
         return transformer.init_lm(cfg, gen, device=device)
 
-    def loss(params, batch):
-        return transformer.loss_fn(cfg, params, batch)
+    def loss(params, batch, remat=False, fetch=None):
+        return transformer.loss_fn(cfg, params, batch, remat=remat,
+                                   fetch=fetch)
 
     def init_cache(batch_size, shape: ShapeConfig, device=device):
         # device="meta": the abstract cache (paging sizes its pool from it)
@@ -77,6 +126,10 @@ def _lm_def(cfg: ArchConfig, device: torch.device) -> ModelDef:
         return transformer.forward(cfg, params, tokens)[0]
 
     return ModelDef(cfg, device, init, loss, init_cache, prefill, decode,
+                    functools.partial(transformer.lm_axes, cfg),
+                    functools.partial(transformer.alloc_lm, cfg,
+                                      device="meta"),
+                    functools.partial(_lm_input_specs, cfg),
                     prefill_extend=(None if cfg.sliding_window
                                     else prefill_extend),
                     logits=logits)
@@ -90,8 +143,8 @@ def _encdec_def(cfg: ArchConfig, device: torch.device) -> ModelDef:
         gen = torch.Generator(device=device).manual_seed(seed)
         return encdec.init_encdec(cfg, gen, device=device)
 
-    def loss(params, batch):
-        return encdec.loss_fn(cfg, params, batch)
+    def loss(params, batch, remat=False, fetch=None):
+        return encdec.loss_fn(cfg, params, batch, remat=remat, fetch=fetch)
 
     def init_cache(batch_size, shape: ShapeConfig, device=device):
         src = shape.seq_len if shape.kind != "train" else shape.seq_len // 2
@@ -106,7 +159,11 @@ def _encdec_def(cfg: ArchConfig, device: torch.device) -> ModelDef:
     def decode(params, token, cache):
         return encdec.decode_step(cfg, params, token, cache)
 
-    return ModelDef(cfg, device, init, loss, init_cache, prefill, decode)
+    return ModelDef(cfg, device, init, loss, init_cache, prefill, decode,
+                    functools.partial(encdec.encdec_axes, cfg),
+                    functools.partial(encdec.alloc_encdec, cfg,
+                                      device="meta"),
+                    functools.partial(_encdec_input_specs, cfg))
 
 
 def _hybrid_def(cfg: ArchConfig, device: torch.device) -> ModelDef:
@@ -115,8 +172,8 @@ def _hybrid_def(cfg: ArchConfig, device: torch.device) -> ModelDef:
         gen = torch.Generator(device=device).manual_seed(seed)
         return hybrid.init_hybrid(cfg, gen, device=device)
 
-    def loss(params, batch):
-        return hybrid.loss_fn(cfg, params, batch)
+    def loss(params, batch, remat=False, fetch=None):
+        return hybrid.loss_fn(cfg, params, batch, remat=remat, fetch=fetch)
 
     def init_cache(batch_size, shape: ShapeConfig, device=device):
         # the shared attention's cache holds the full context
@@ -134,6 +191,10 @@ def _hybrid_def(cfg: ArchConfig, device: torch.device) -> ModelDef:
         return hybrid.forward(cfg, params, tokens)[0]
 
     return ModelDef(cfg, device, init, loss, init_cache, prefill, decode,
+                    functools.partial(hybrid.hybrid_axes, cfg),
+                    functools.partial(hybrid.alloc_hybrid, cfg,
+                                      device="meta"),
+                    functools.partial(_lm_input_specs, cfg),
                     logits=logits)
 
 

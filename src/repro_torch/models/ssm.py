@@ -74,6 +74,17 @@ def alloc_mamba2(empty, zeros, ones, lead: tuple, cfg: SSMConfig) -> dict:
             "out": empty(*lead, di, d)}
 
 
+def mamba2_axes() -> dict:
+    """Logical axes of one layer's ``alloc_mamba2`` subtree (the
+    reference's ``init_mamba2`` axes)."""
+    return {"in_z": ("embed", "ff"), "in_x": ("embed", "ff"),
+            "in_b": ("embed", None), "in_c": ("embed", None),
+            "in_dt": ("embed", None), "conv_x": (None, "ff"),
+            "conv_b": (None, None), "conv_c": (None, None),
+            "a_log": (None,), "dt_bias": (None,), "d_skip": (None,),
+            "norm": ("ff",), "out": ("ff", "embed")}
+
+
 def init_mamba2(p: dict, generator: torch.Generator, cfg: SSMConfig) -> None:
     """Fill one layer's Mamba2 tensors (views) with ``repro``'s scales:
     the input projections fan_in = d_model, the convs K ** -0.5, the

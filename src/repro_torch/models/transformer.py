@@ -72,6 +72,32 @@ def alloc_lm(cfg, *, device="cuda") -> dict:
     return params
 
 
+def _layer_axes(cfg, is_moe: bool) -> dict:
+    p = {"ln_attn": ("embed",), "wq": ("embed", "heads"),
+         "wk": ("embed", "heads"), "wv": ("embed", "heads"),
+         "wo": ("heads", "embed"), "ln_mlp": ("embed",)}
+    if is_moe:
+        p["moe"] = moe.moe_axes(cfg.moe.n_shared)
+    else:
+        p["mlp"] = {"gate": ("embed", "ff"), "up": ("embed", "ff"),
+                    "down": ("ff", "embed")}
+    return p
+
+
+def lm_axes(cfg) -> dict:
+    """The logical-axes twin of ``alloc_lm``: one axis name per dim of
+    every parameter (the reference's ``init_lm`` axes), the stacked
+    layers led by ``"layers"``."""
+    axes = {"embed": ("vocab", "embed"), "ln_f": ("embed",)}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    axes["layers"] = common.stack_layer_axes(
+        _layer_axes(cfg, cfg.moe is not None))
+    for i in range(n_dense_prefix(cfg)):
+        axes[f"dense{i}"] = _layer_axes(cfg, False)
+    return axes
+
+
 def _init_layer(cfg, p: dict, generator: torch.Generator) -> None:
     """Fill one layer's tensors (views) with ``repro``'s scales."""
     hq = cfg.n_heads * _head_dim(cfg)
@@ -174,22 +200,27 @@ def _stage_layers(cfg, params, n_scan: int, first: bool) -> list[dict]:
 # -- training -----------------------------------------------------------------
 
 
-def forward(cfg, params, tokens, *, frontend=None):
+def forward(cfg, params, tokens, *, frontend=None, remat=False, fetch=None):
     """Training/scoring forward -> (logits (B, F + S, V), aux). Plain
     PyTorch, differentiable (attention is ``attention.attention``).
     ``frontend``: optional (B, F, d_model) embeddings (a VLM's image
     patches) prepended to the token embeddings. The dense prefix layers
     run first; ``aux["lb_loss"]`` is the MoE layers' summed load-balance
     loss (0 without MoE) and, on MoE models, ``aux["dropped_frac"]``
-    their mean share of dropped routes. Remat is not ported."""
+    their mean share of dropped routes. ``remat`` checkpoints each
+    layer; ``fetch`` maps each layer's weights (and the top-level ones)
+    before use (``common.run_layer``)."""
+    params = common.fetch_top(params, fetch)
     x = common.embedding_lookup(params["embed"], tokens)
     if frontend is not None:
         x = torch.cat([frontend.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     lbs, drops = [], []
+    def layer(p, x):
+        return _layer(cfg, p, x, positions=positions)
     for p in _stage_layers(cfg, params, n_scan_layers(cfg), True):
-        x, _, aux = _layer(cfg, p, x, positions=positions)
+        x, _, aux = common.run_layer(layer, p, x, remat=remat, fetch=fetch)
         if aux:
             lbs.append(aux["lb_loss"])
             drops.append(aux["dropped_frac"])
@@ -202,13 +233,15 @@ def forward(cfg, params, tokens, *, frontend=None):
     return x @ head, out
 
 
-def loss_fn(cfg, params, batch):
+def loss_fn(cfg, params, batch, *, remat=False, fetch=None):
     """(loss, metrics) of one batch {"tokens", "targets", "mask"} and,
     for a VLM, "frontend" (B, F, d_model): its F positions are sliced
     off the logits before the loss. MoE models add ``lb_weight`` x the
-    load-balance loss and report ``lb_loss`` and ``dropped_frac``."""
+    load-balance loss and report ``lb_loss`` and ``dropped_frac``.
+    ``remat`` / ``fetch``: see ``forward``."""
     frontend = batch.get("frontend")
-    logits, aux = forward(cfg, params, batch["tokens"], frontend=frontend)
+    logits, aux = forward(cfg, params, batch["tokens"], frontend=frontend,
+                          remat=remat, fetch=fetch)
     n_front = 0 if frontend is None else frontend.shape[1]
     loss, metrics = common.cross_entropy_max_z(
         logits[:, n_front:], batch["targets"], batch.get("mask"),

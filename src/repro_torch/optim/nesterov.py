@@ -45,6 +45,9 @@ class NesterovSGD:
         """Flat-buffer form of ``update`` (the same elementwise math) ->
         (new_p_flat, new_m_flat)."""
         d = delta_flat.float()
-        m_new = self.momentum * m_flat + d
-        step = self.momentum * m_new + d   # Nesterov look-ahead
-        return p_flat - self.lr * step, m_new
+        # the same ops as ``update``'s, each rounded alike; written in
+        # place on fresh buffers so no third temporary of the flat size
+        # is live at once
+        m_new = torch.mul(m_flat, self.momentum).add_(d)
+        step = torch.mul(m_new, self.momentum).add_(d)   # look-ahead
+        return torch.sub(p_flat, step.mul_(self.lr)), m_new

@@ -1,5 +1,7 @@
-"""The distributed outer sync (port of ``repro.train.step``'s per-hop
-ring: ``DistSyncPrograms``, ``DistRingSyncOp``, ``DistSyncBackend``).
+"""Train and sync steps (port of ``repro.train.step``): the distributed
+outer sync's per-hop ring (``DistSyncPrograms``, ``DistRingSyncOp``,
+``DistSyncBackend``) and the hybrid DiLoCo-FSDP train step and its
+sharded outer sync (``build_train_step``, ``build_outer_sync``, below).
 
 The reference runs each wire hop of the int8 ring as a jitted
 ``shard_map`` program over a mesh of devices, one ring position per
@@ -32,8 +34,7 @@ per-slice, so results equal the PER-SLICE simulator.
 
 A changed ring order or geometry re-forms the ranks' peer map
 (``DistSyncBackend.recompiles`` counts the builds, the first included).
-Not ported yet: the FSDP-inside-DiLoCo train step and its sharded outer
-sync (``build_train_step``, ``build_outer_sync``).
+``build_serve_step`` (sharded serving) is not ported yet.
 """
 from __future__ import annotations
 
@@ -49,9 +50,14 @@ import torch.nn.functional as F
 from repro_torch.core import diloco as dl
 from repro_torch.core import elastic_mesh, rank_mesh
 from repro_torch.core import ring_reduce as rr
+from repro_torch.core.sync_engine import (SyncEngine, from_paths, leaves,
+                                          leaves_with_paths,
+                                          shard_flat_size, tree_map)
 from repro_torch.kernels import int8_quant as iq
+from repro_torch.optim.adamw import AdamW, AdamWState
+from repro_torch.optim.nesterov import NesterovState
+from repro_torch.sharding import partition
 
-_ALIGN = 16          # bytes: each payload part starts on this boundary
 _HOP_TIMES = ("hop_s", "codec_s", "d2h_s", "wire_s", "h2d_s")
 
 
@@ -128,47 +134,15 @@ def _rank_prep(ctx, pid: int, op_id: int, accs: torch.Tensor, fused,
     ops[op_id] = _RankOp(prog, accs[slot, local:local + 1], fused)
 
 
-def _staging(ctx, nbytes: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(send, recv) host buffers of ``nbytes``, kept for reuse; pinned
-    when the rank's device is a card."""
-    cache = ctx.state.setdefault("staging", {})
-    if nbytes not in cache:
-        pin = ctx.device.type == "cuda"
-        cache[nbytes] = tuple(torch.empty(nbytes, dtype=torch.uint8,
-                                          pin_memory=pin) for _ in range(2))
-    return cache[nbytes]
-
-
 def _exchange(ctx, prog: _RankPrograms, payload: tuple, times: dict):
     """The ring's shift at one position: send ``payload`` (a tuple of
     tensors) to the next position and receive the previous position's,
     of the same shapes and dtypes, through host buffers over the WAN
-    group."""
-    import torch.distributed as dist
-    parts = [p.contiguous() for p in payload]
-    sizes = [p.numel() * p.element_size() for p in parts]
-    offsets = np.cumsum([0] + [-(-n // _ALIGN) * _ALIGN
-                               for n in sizes]).tolist()
+    group (``ring_reduce.staged_shift``, which adds its seconds to
+    ``times``)."""
     ctx.sync()
-    t0 = time.perf_counter()
-    send, recv = _staging(ctx, offsets[-1])
-    for p, off, n in zip(parts, offsets, sizes):
-        send[off:off + n].copy_(p.reshape(-1).view(torch.uint8))
-    t1 = time.perf_counter()
-    works = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, send, prog.next, prog.wan),
-        dist.P2POp(dist.irecv, recv, prog.prev, prog.wan)])
-    for w in works:
-        w.wait(ctx.timeout)
-    t2 = time.perf_counter()
-    got = recv.to(ctx.device) if ctx.device.type == "cuda" else recv.clone()
-    out = tuple(got[off:off + n].view(p.dtype).view(p.shape)
-                for p, off, n in zip(parts, offsets, sizes))
-    t3 = time.perf_counter()
-    times["d2h_s"] += t1 - t0
-    times["wire_s"] += t2 - t1
-    times["h2d_s"] += t3 - t2
-    return out
+    return rr.staged_shift(payload, prog.wan, prog.next, prog.prev,
+                           ctx.timeout, times)
 
 
 def _rank_hop(ctx, op_id: int, i: int) -> None:
@@ -529,3 +503,420 @@ class DistSyncBackend:
                             fused_src=fused_src)
         return dl.OuterSyncHandle(op, cfg, a_flat, new_residuals,
                                   weights, k, ef_slot=ef_slot)
+
+
+# -- the hybrid DiLoCo-FSDP train step and its sharded outer sync -------------
+#
+# The reference runs the inner step as one pjit program over (data,
+# model) and the outer sync inside a shard_map region manual over the
+# DiLoCo axis (paper §2.3: FSDP inside, DiLoCo outside). Here both are
+# ONE body per rank over a ``DeviceMesh`` (``launch.mesh``): in a mesh of
+# rank processes (``RankContext.device_mesh``) it trains; in the fake
+# world of the dry run (``make_production_mesh``) it is traced on fake
+# tensors. A rank holds its local block of every state tensor, as the
+# state specs lay it out; a stacked (DiLoCo) state keeps a leading
+# worker dim of local size 1.
+#
+# FSDP is done on DTensors, not ``fully_shard`` (the models are
+# functional trees, not modules; torchtitan's "SimpleFSDP" design):
+# before a layer uses its weights, the loss's ``fetch`` gathers them over
+# the worker's mesh dims (``_Gather``: all-gather forward, reduce-scatter
+# of the summed gradient backward; with remat the gather is redone in
+# backward).
+
+
+def mesh_axes(mesh) -> dict[str, int]:
+    """Axis name -> size of a ``DeviceMesh``, a ``RankMesh`` or a dict."""
+    if isinstance(mesh, dict):
+        return dict(mesh)
+    if hasattr(mesh, "mesh_dim_names"):
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return dict(mesh.shape)
+
+
+def param_specs(model, plan, mesh):
+    """Spec tree of the model's parameters under ``plan``."""
+    return partition.param_pspecs(model.axes(), model.param_shapes(), plan,
+                                  mesh_axes(mesh))
+
+
+def _sharded(specs) -> bool:
+    return any(any(e is not None for e in s) for s in _spec_leaves(specs))
+
+
+def _spec_leaves(specs) -> list:
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in _spec_leaves(specs[k])]
+    return [specs]
+
+
+def _shard_flat_dims(shapes, pspecs, amap: dict,
+                     diloco_axis: str | None) -> tuple[int, int]:
+    """(padded_local_len, tile) of the per-shard flat anchor buffer a
+    sharded plan threads through its sync: the concat of a rank's local
+    anchor shards PLUS ONE SENTINEL element, tiled over the non-DiLoCo
+    mesh axes. The sentinel makes the threaded layout's length differ
+    from a global flatten's (numel) even when every leaf shards evenly,
+    so ``sync`` can always tell a global-layout buffer
+    (``init_outer_state``'s) from its own and rebuild it."""
+    local = shard_flat_size(shapes, pspecs, amap) + 1
+    tile = math.prod(n for a, n in amap.items() if a != diloco_axis)
+    return local, tile
+
+
+def flat_anchor_len(model, plan, mesh) -> int:
+    """GLOBAL length of the flat anchor buffer the outer sync threads:
+    numel for replicated-parameter plans; for sharded plans the
+    per-shard length (``_shard_flat_dims``) tiled over the non-DiLoCo
+    mesh axes (an opaque rank-major concat; a rank holds its block)."""
+    shapes = model.param_shapes()
+    amap = mesh_axes(mesh)
+    pspecs = partition.param_pspecs(model.axes(), shapes, plan, amap)
+    if not _sharded(pspecs):
+        return sum(l.numel() for l in leaves(shapes))
+    local, tile = _shard_flat_dims(shapes, pspecs, amap, plan.diloco_axis)
+    return local * tile
+
+
+def batch_pspecs(model, shape, plan, mesh, *, stacked: bool) -> dict:
+    """Leading-batch-dim specs for every input leaf (+ worker dim)."""
+    per_worker = shape.global_batch // plan.n_workers
+    bp = partition.batch_pspec(plan, per_worker, mesh_axes(mesh))
+    if stacked and plan.diloco_axis:
+        bp = (plan.diloco_axis,) + bp
+    return {k: bp for k in model.input_specs(shape)}
+
+
+def _coords(mesh) -> dict[str, int]:
+    """This rank's coordinate along each dim of ``mesh``."""
+    return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+
+
+def _worker_mesh(mesh, dax):
+    """The submesh of one DiLoCo worker: every dim but ``dax`` (None if
+    there is none)."""
+    inner = tuple(n for n in mesh.mesh_dim_names if n != dax)
+    return mesh[inner] if inner else None
+
+
+def _wait(t: torch.Tensor) -> torch.Tensor:
+    """The tensor behind a functional collective's pending result."""
+    return t.wait() if hasattr(t, "wait") else t
+
+
+class _Gather(torch.autograd.Function):
+    """A parameter's local block -> the whole parameter over ``mesh``
+    (all-gather along each sharded dim; a replicated one passes as is).
+    Backward takes the gradient as a partial sum over every rank of the
+    mesh (each saw its own batch slice) and reduces it back to the
+    block's layout: reduce-scatter on sharded dims, all-reduce on
+    replicated ones. The result is the SUM over the mesh's ranks."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, pl):
+        from torch.distributed.tensor import DTensor, Replicate
+        ctx.mesh, ctx.pl = mesh, pl
+        rep = (Replicate(),) * len(pl)
+        if pl == rep:
+            return x.view_as(x)
+        return _wait(DTensor.from_local(x, mesh, pl, run_check=False)
+                     .redistribute(mesh, rep).to_local())
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Partial
+        part = (Partial(),) * len(ctx.pl)
+        out = DTensor.from_local(g.contiguous(), ctx.mesh, part,
+                                 run_check=False)
+        return _wait(out.redistribute(ctx.mesh, ctx.pl).to_local()), None, None
+
+
+def _layer_layouts(axes, specs, prefix=()) -> list:
+    """(path inside its layer tree, spec) of every parameter. A stacked
+    leaf (logical axes led by "layers") is seen by ``fetch`` one layer
+    at a time, so its spec loses the lead; a top-level tensor's path is
+    its own name."""
+    if isinstance(axes, dict):
+        return [lay for k in axes
+                for lay in _layer_layouts(axes[k], specs[k], prefix + (k,))]
+    spec = specs[1:] if axes[:1] == ("layers",) else specs
+    return [(prefix if len(prefix) == 1 else prefix[1:], spec)]
+
+
+def _make_fetch(model, pspecs, sub, flat):
+    """The loss's ``fetch`` over the worker mesh ``sub`` (``flat``: the
+    same ranks as one mesh dim): each tensor of a layer tree goes
+    through ``_Gather`` with its layout, found by its path inside the
+    layer tree (each such path must name one layout)."""
+    if sub is None:
+        return None
+    from torch.distributed.tensor import Replicate
+    table: dict = {}
+    for rel, spec in _layer_layouts(model.axes(), pspecs):
+        pl = partition.placements(spec, sub)
+        # a replicated tensor's gradient: ONE all-reduce over all ranks
+        lay = ((flat, (Replicate(),)) if not any(e is not None
+                                                  for e in spec)
+               else (sub, pl))
+        if table.setdefault(rel, lay) != lay:
+            raise ValueError(f"parameter path {rel} has two layouts")
+
+    def fetch(tree, prefix=()):
+        if isinstance(tree, dict):
+            return {k: fetch(v, prefix + (k,)) for k, v in tree.items()}
+        return _Gather.apply(tree, *table[prefix])
+    return fetch
+
+
+def _flat(sub):
+    """``sub`` as one mesh dim (flattened when it has more)."""
+    return sub._flatten() if sub.ndim > 1 else sub
+
+
+def _mean_over(t: torch.Tensor, sub, n: int) -> torch.Tensor:
+    """Mean of ``t`` over the ranks of ``sub`` (one flat mesh dim; a
+    sum, then / n: gloo has no average)."""
+    if sub is None or n == 1:
+        return t
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    tot = DTensor.from_local(t, sub, (Partial(),), run_check=False)
+    return _wait(tot.redistribute(sub, (Replicate(),)).to_local()) / n
+
+
+def local_train_state(model, plan, mesh, params=None):
+    """This rank's block of a fresh train state (``build_train_step``'s
+    layout): the parameters cut from ``params`` (the whole tree, e.g.
+    ``model.init(seed)``) or, without it, allocated unfilled (under
+    ``FakeTensorMode`` the dry run's fake state); zero AdamW moments in
+    fp32; a leading worker dim of 1 when the plan has a DiLoCo axis."""
+    from repro_torch.train.state import TrainState
+    amap, coords = mesh_axes(mesh), _coords(mesh)
+    pspecs = param_specs(model, plan, mesh)
+    dax = plan.diloco_axis
+    shapes = model.param_shapes()
+
+    def block(spec, shape, src=None):
+        if src is None:
+            t = torch.empty(partition.local_shape(shape.shape, spec, amap),
+                            dtype=shape.dtype, device=model.device)
+        else:
+            t = partition.local_block(src, spec, amap, coords).clone()
+        return t[None] if dax else t
+    if params is None:
+        p = tree_map(block, pspecs, shapes)
+    else:
+        p = tree_map(block, pspecs, shapes, params)
+    some = leaves(p)[0]
+    step = torch.zeros((1,) if dax else (), dtype=torch.int32,
+                       device=some.device)
+    zeros = tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                           device=t.device), p)
+    return TrainState(p, AdamWState(step, zeros,
+                                    tree_map(torch.clone, zeros)))
+
+
+def build_train_step(model, plan, mesh, optimizer: AdamW):
+    """Returns (train_step, state_specs): the hybrid DiLoCo-FSDP inner
+    step of one rank over ``mesh`` (a ``DeviceMesh`` with the plan's
+    axis names).
+
+    The state and batch carry a leading DiLoCo-worker dim iff
+    ``plan.diloco_axis``; the state is this rank's block of each tensor
+    as ``state_specs`` lays it out (``local_train_state``), the batch
+    the whole one or this rank's worker's block of it (leading dim 1);
+    the rank takes its rows over ``plan.batch_axes``.
+    ``train_step(state, batch) -> (state, metrics)`` updates the state
+    in place (the reference donates it) and returns the loss's metrics,
+    averaged over the worker's ranks.
+
+    Each rank computes the loss of its batch slice with every layer's
+    weights gathered over the worker's mesh dims (``_Gather``; ``remat``
+    per layer as the plan says); the gradients come back summed over
+    the worker's ranks and are divided by their count, so a worker
+    takes the mean over its batch shards (ranks that share a slice
+    count it as often as they share it). ``plan.microbatches``
+    accumulates in fp32 (metrics from the last microbatch), taking as
+    many as divide the rank's rows. AdamW runs on the local shards."""
+    from repro_torch.train.state import TrainState
+    amap = mesh_axes(mesh)
+    pspecs = param_specs(model, plan, mesh)
+    dax = plan.diloco_axis
+    sub = _worker_mesh(mesh, dax)
+    n_ranks = math.prod(n for a, n in amap.items() if a != dax)
+    flat = None if sub is None else _flat(sub)
+    fetch = _make_fetch(model, pspecs, sub, flat)
+    bspec = partition.batch_pspec(plan)
+    bl_spec = ((dax,) if dax else ()) + (bspec[0] if bspec else None,)
+    lead = lambda t: partition.with_leading(t, dax)
+    state_specs = TrainState(lead(pspecs), AdamWState(
+        (dax,) if dax else (), lead(pspecs), lead(pspecs)))
+
+    def cut(v, coords):
+        """This rank's rows of one input: from the whole (stacked)
+        batch, or from its worker's block (leading dim 1)."""
+        if dax and v.shape[0] == 1 < amap[dax]:
+            return partition.local_block(v[0], bl_spec[1:], amap, coords)
+        v = partition.local_block(v, bl_spec, amap, coords)
+        return v[0] if dax else v
+
+    def grads_of(params, batch):
+        rows = next(iter(batch.values())).shape[0]
+        nmb = math.gcd(plan.microbatches, rows)
+        req = tree_map(lambda p: p.detach().requires_grad_(), params)
+        ws = leaves(req)
+        acc, metrics = None, None
+        for mb in range(nmb):
+            lo, hi = mb * rows // nmb, (mb + 1) * rows // nmb
+            b = {k: v[lo:hi] for k, v in batch.items()}
+            loss, metrics = model.loss(req, b, remat=plan.remat,
+                                       fetch=fetch)
+            gs = torch.autograd.grad(loss, ws, allow_unused=True)
+            gs = [torch.zeros_like(p) if g is None else g
+                  for g, p in zip(gs, ws)]
+            if nmb == 1:
+                acc = gs
+            elif acc is None:
+                acc = [g.float() for g in gs]
+            else:
+                for a, g in zip(acc, gs):
+                    a.add_(g.float())
+        scale = nmb * n_ranks
+        grads = [g / scale if scale > 1 else g for g in acc]
+        return grads, {k: v.detach() for k, v in metrics.items()}
+
+    def step(state, batch):
+        coords = _coords(mesh)
+        own = (lambda t: t[0]) if dax else (lambda t: t)
+        params = tree_map(own, state.params)
+        opt = AdamWState(own(state.opt.step), tree_map(own, state.opt.m),
+                         tree_map(own, state.opt.v))
+        local = {k: cut(v, coords) for k, v in batch.items()}
+        grads, metrics = grads_of(params, local)
+        paths = [p for p, _ in leaves_with_paths(params)]
+        optimizer.update_(from_paths(paths, grads), opt, params)
+        keys = sorted(metrics)
+        vals = _mean_over(torch.stack([metrics[k].float() for k in keys]),
+                          flat, n_ranks)
+        return state, dict(zip(keys, vals.unbind()))
+
+    return step, state_specs
+
+
+def shard_tree(tree, specs, mesh) -> dict:
+    """This rank's block (a copy) of every tensor of ``tree`` laid out
+    as ``specs`` (e.g. ``partition.with_leading(param_specs(...), dax)``
+    for stacked parameters)."""
+    amap, coords = mesh_axes(mesh), _coords(mesh)
+    return tree_map(lambda spec, t: partition.local_block(
+        t, spec, amap, coords).clone(), specs, tree)
+
+
+def local_outer_state(model, plan, mesh, anchor_local,
+                      cfg: dl.DiLoCoConfig):
+    """This rank's block of a fresh outer state for ``build_outer_sync``
+    from its block of the (unstacked) anchor parameters: the fp32
+    anchor (views of a flat buffer), zero momentum, an empty residual
+    ((1, 0) with a DiLoCo axis) and the flat buffer the sync threads
+    (for a sharded plan, the per-shard view with its sentinel)."""
+    st = dl.init_outer_state(anchor_local, cfg)
+    if plan.diloco_axis:
+        st = st._replace(residual=st.residual[None])
+        if _sharded(param_specs(model, plan, mesh)):
+            # the per-shard view with its sentinel, the anchor's leaves
+            # its views (no second copy at the first sync)
+            flat = F.pad(st.anchor_flat, (0, 1))
+            eng = SyncEngine.for_tree(anchor_local)
+            st = st._replace(anchor=eng.unflatten(flat[:-1],
+                                                  dtype=torch.float32),
+                             anchor_flat=flat)
+    return st
+
+
+def build_outer_sync(model, plan, mesh, diloco_cfg: dl.DiLoCoConfig,
+                     ring_order=None):
+    """Returns (sync_step, outer_specs): the DiLoCo outer step of one
+    rank over ``mesh``.
+
+    ``sync_step(params_stacked, outer_state, weights) -> (params_stacked,
+    outer_state)``, every tensor this rank's block (``weights`` (1,) with
+    a DiLoCo axis). The outer state (fp32 anchor + Nesterov momentum) is
+    shared by the workers and laid out like the parameters. Three
+    branches, as in the reference:
+
+      * no DiLoCo axis: the per-leaf step on the local shards (no
+        communication; flattening would concat sharded leaves);
+      * replicated inner parameters: ``diloco.outer_sync`` over the
+        DiLoCo group, threading the flat fp32 anchor (the returned
+        buffer is the one the new anchor's leaves view);
+      * sharded parameters (paper §2.3: "only ranks responsible for the
+        same shard communicate"): each rank rings the flat concat of its
+        own shards over its DiLoCo group (one ring per shard position,
+        all in parallel), and threads a per-shard flat anchor of that
+        length plus one sentinel element (``_shard_flat_dims``); a
+        buffer of any other length is rebuilt from the anchor tree.
+        Error feedback raises ``NotImplementedError`` there (per-shard
+        residuals are not kept), as in the reference."""
+    amap = mesh_axes(mesh)
+    pspecs = param_specs(model, plan, mesh)
+    dax = plan.diloco_axis
+
+    if dax is None:
+        def sync_single(params, outer_state, weights):
+            del weights
+            delta = tree_map(lambda a, p: a - p.float(), outer_state.anchor,
+                             params)
+            new_anchor, new_opt = diloco_cfg.outer_opt.update(
+                delta, outer_state.opt, outer_state.anchor)
+            # copies: the train step writes the parameters in place
+            new_params = tree_map(lambda a, p: a.to(p.dtype, copy=True),
+                                  new_anchor, params)
+            return new_params, dl.OuterState(
+                new_anchor, new_opt, outer_state.residual,
+                outer_state.outer_step + 1)
+        return sync_single, dl.OuterState(pspecs, NesterovState(pspecs),
+                                          (), ())
+
+    sharded = _sharded(pspecs)
+    if diloco_cfg.error_feedback and sharded:
+        raise NotImplementedError(
+            "error feedback requires per-shard residual bookkeeping; "
+            "supported with replicated-inner-params plans only")
+    group = mesh.get_group(dax)
+    nondax = tuple(a for a in amap if a != dax)
+    if sharded:
+        padded_local, _ = _shard_flat_dims(model.param_shapes(), pspecs,
+                                           amap, dax)
+
+    def sync(params_stacked, outer_state, weights):
+        p_i = tree_map(lambda x: x[0], params_stacked)
+        a_flat = outer_state.anchor_flat
+        if sharded:
+            if a_flat is None or tuple(a_flat.shape) != (padded_local,):
+                # first sync, or a global-layout buffer: build the
+                # per-shard view once; later syncs thread the result
+                a_flat = F.pad(SyncEngine.for_tree(outer_state.anchor)
+                               .flatten(outer_state.anchor), (0, 1))
+            a_flat = a_flat[:-1]                 # drop the sentinel
+        st = outer_state._replace(residual=outer_state.residual[0],
+                                  anchor_flat=a_flat)
+        new_p, new_st = dl.outer_sync(p_i, st, diloco_cfg, group,
+                                      ring_order=ring_order,
+                                      weight=weights[0])
+        new_flat = new_st.anchor_flat
+        if sharded:
+            new_flat = F.pad(new_flat, (0, 1))
+            eng = SyncEngine.for_tree(new_st.anchor)
+            new_st = new_st._replace(
+                anchor=eng.unflatten(new_flat[:-1], dtype=torch.float32))
+        # an fp32 parameter is a view of the flat anchor: copy it, as the
+        # train step writes the parameters in place
+        new_p = tree_map(lambda x: (x.clone() if x.dtype == torch.float32
+                                    else x)[None], new_p)
+        return new_p, new_st._replace(residual=new_st.residual[None],
+                                      anchor_flat=new_flat)
+
+    flat_spec = ()
+    if sharded and nondax:
+        flat_spec = (nondax[0] if len(nondax) == 1 else nondax,)
+    return sync, dl.OuterState(pspecs, NesterovState(pspecs), (dax,), (),
+                               flat_spec)

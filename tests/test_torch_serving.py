@@ -160,7 +160,11 @@ def test_port_imports_neither_jax_nor_repro(tmp_path):
             "repro_torch.serving.swarm_serve, repro_torch.models.encdec, "
             "repro_torch.rl, repro_torch.rl.buffer, repro_torch.rl.grpo, "
             "repro_torch.rl.policy_pub, repro_torch.rl.rollout, "
-            "repro_torch.rl.driver, repro_torch.launch.rl\n"
+            "repro_torch.rl.driver, repro_torch.launch.rl, "
+            "repro_torch.sharding.plans, repro_torch.train.state, "
+            "repro_torch.analysis, repro_torch.analysis.op_cost, "
+            "repro_torch.analysis.roofline, repro_torch.analysis.report, "
+            "repro_torch.launch.dryrun\n"
             + bad + "assert not bad, bad\n\n"
             "def rank_modules(ctx):\n"
             "    " + bad.replace("\n", "\n    ") + "return bad\n\n"
