@@ -200,11 +200,42 @@ Phases, each of which raises on failure (nothing is caught):
    the host (fake world) after the timed step, not beside it; their
    lines and seconds are printed.
 
+16. sharded serving (``build_serve_step``, the rank driver
+   ``repro_torch.launch.shard_serve``): kernel 5's block variant
+   (``flash_decode_partial``: out and the log-sum-exp of one block of a
+   cache) against its plain version at phase 16 (b)'s rank block and at
+   h2o-danube-1.8b's production decode block (8 rows, 32 heads over kv
+   8 of 80, a wrapped 4096-cell ring in blocks of 256, the merged blocks
+   against kernel 5 on the whole ring), bf16 and fp32, empty blocks
+   included: out within ``TOL``, lse within 1e-5, a repeat bitwise;
+   timed beside its byte bound and one call of the efficient-attention
+   op that returns the log-sum-exp; kernel 5 at a rank's heads of (a)
+   (16 query heads over 4 kv heads), held and timed. (a) INTELLECT-1 at full width and
+   depth, bf16, on a (1, 2) ("data", "model") mesh of rank processes on
+   the card ('model' groups gloo: host-staged): its 8 KV heads divide
+   'model', so each rank holds 4 kv heads of the cache and runs kernel 5
+   at 16 query heads; 4 prompts of phase 5's lengths, 16 greedy decode
+   steps: tokens and every step's logits bitwise those of the
+   one-device ``ModelDef.prefill`` / ``decode`` (run first, its logits
+   kept on the host, freed before the ranks start), kernel 5 launched
+   42 times a decode step on each rank. (b) INTELLECT-1 at full width,
+   depth 8, fp32, on a (1, 3) mesh: 8 KV heads do not divide 3, so the
+   1536-cell cache is laid by sequence (512 cells a rank) and the
+   prefill splits the sequence; prompts of 100, 500, 1010 and 1400
+   tokens (one slot crosses a block boundary while decoding), 32 greedy
+   steps: tokens equal to the one-device fp32 run's, every step's
+   logits within 1e-4 x max|logit|, the block variant launched 8 times a
+   decode step on each rank (empty blocks included). Every process's
+   peak of allocated bytes in the phase, summed, under 70 GiB; each
+   rank's decode-step median and its share in the 'model' collectives
+   printed.
+
 ``python3 chip_smoke.py --dist-slots N`` builds and runs phase 9 alone
 with N slots (how its slot count was sized), ``--swarm-only`` phase 10
 alone, ``--moe-only`` phase 11 alone, ``--ssm-only`` phase 12 alone,
 ``--encdec-only`` phase 13 alone, ``--rl-only`` phase 14 alone,
-``--fsdp-only`` phase 15 alone; none prints a result.
+``--fsdp-only`` phase 15 alone, ``--shard-serve-only`` phase 16 alone;
+none prints a result.
 
 The last three lines are the kernels (JSON), the card (name, power
 limit) and the result.
@@ -396,6 +427,31 @@ FSDP_DRYRUN = ("internlm2-1.8b", "dbrx-132b")
 # (B, S_max, Hk, G, dh, lengths): INTELLECT-1's attention at a long cache,
 # where the bytes rather than the latency chain should set the pace
 FD_LONG = (4, 8192, 8, 4, 128, [8192, 4096, 2048, 1])
+# phase 16: sharded serving on rank processes of the one card. (a) the
+# heads layout: INTELLECT-1 full width and depth, bf16, a (1, 2) mesh,
+# the first 4 requests of phase 5's trace, 16 greedy steps; (b) the
+# sequence layout: depth 8, fp32, a (1, 3) mesh, 1536 cells (512 a
+# rank), prompts of these lengths, 32 greedy steps
+SHARD_HEADS = {"arch": "intellect-1", "n_layers": None, "dtype": None,
+               "mesh": (1, 2), "max_len": 512, "n_decode": 16}
+SHARD_SEQ = {"arch": "intellect-1", "n_layers": 8, "dtype": "float32",
+             "mesh": (1, 3), "max_len": 1536,
+             "lengths": (100, 500, 1010, 1400), "n_decode": 32, "seed": 0}
+SHARD_SEQ_TOL = 1e-4           # x max|logit|: only the merge's order differs
+# kernel 5 at a rank of (a): B 4, S_max 512, 4 of the 8 kv heads, G 4,
+# dh 128, bf16, at the serving shape's lengths
+SHARD_HEADS_FD = ("intellect-1 (a) rank heads", 4, 512, 4, 4, 128,
+                  [0, 1, 300, 512])
+SHARD_LSE_TOL = 1e-5
+# the block variant's holds: (label, B, S_blk, Hk, G, dh, lengths, ring):
+# (b)'s rank block at the prompts' lengths (rank 1: cells 512-1023), and
+# h2o-danube-1.8b's decode block (its 8 rows a rank, a 4096-cell window
+# ring split over 'model' = 16), the whole ring merged (ring = 4096)
+SHARD_FD_CASES = [
+    ("intellect-1 (b) rank 1", 4, 512, 8, 4, 128, [0, 0, 498, 512], None),
+    ("h2o-danube-1.8b ring", 8, 4096, 8, 4, 80,
+     [1, 200, 4095, 4096, 4097, 5000, 8191, 12345], 256),
+]
 L2_FLUSH_BYTES = 256 << 20       # > the 50 MB L2: each timed call starts cold
 SPIN_CYCLES = 2_000_000          # ~1 ms at the H100's 1.98 GHz boost clock
 LEAD_SPINS = 4                   # spin kernels opening a profiled window
@@ -4480,6 +4536,292 @@ def fsdp_phase() -> dict:
             "dryrun": {a: dry[a] for a in FSDP_DRYRUN}}
 
 
+def shard_flash_decode() -> dict:
+    """Phase 16 (c): the block variant at ``SHARD_FD_CASES`` in bf16 and
+    fp32. A ring case holds every one of its blocks (each block's live
+    cells ``attention.block_length``) and the blocks' merge against
+    kernel 5 on the whole ring with its window; the timed block is
+    block 1 (a rank's). Timed beside its byte bound and one call of
+    ``aten._scaled_dot_product_efficient_attention`` with
+    ``compute_log_sumexp`` (K/V repeated to Hq, a -inf bias on the dead
+    cells, made outside the timing). Returns {label/dtype: entry}."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models.attention import block_length, decode_valid_mask
+    out = {}
+    for i, (label, b, s, hk, g, dh, lengths, blk) in \
+            enumerate(SHARD_FD_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).removeprefix("torch.")
+            q, k, v, length = flash_decode_inputs(b, s, hk, g, dh, dtype,
+                                                  lengths, seed=160 + i)
+            step = blk or s
+            blocks = [(k[:, o:o + step].contiguous(),
+                       v[:, o:o + step].contiguous(),
+                       block_length(length, o, step, s))
+                      for o in range(0, s, step)]
+            outs, lses, err, lse_err = [], [], 0.0, 0.0
+            for kb, vb, lb in blocks:
+                got, lse = fd.flash_decode_partial(q, kb, vb, lb)
+                ref, ref_lse = fd.flash_decode_partial_torch(q, kb, vb, lb)
+                err = max(err, check_repeat_and_close(
+                    f"flash_decode_partial {label} {dname}", got,
+                    fd.flash_decode_partial(q, kb, vb, lb)[0], ref, dtype))
+                live = lb > 0
+                if not (torch.isneginf(lse[~live]).all()
+                        and (got[~live] == 0).all()):
+                    raise AssertionError(f"flash_decode_partial {label}: an "
+                                         "empty block's lse is not -inf or "
+                                         "its out not 0")
+                if live.any():
+                    lse_err = max(lse_err, (lse[live] - ref_lse[live]).abs()
+                                  .max().item())
+                outs.append(got)
+                lses.append(lse)
+            if lse_err > SHARD_LSE_TOL:
+                raise AssertionError(f"flash_decode_partial {label} {dname}: "
+                                     f"lse max|err| {lse_err} > "
+                                     f"{SHARD_LSE_TOL}")
+            merge_err = None
+            if len(blocks) > 1:
+                whole = fd.flash_decode(q, k, v, length, window=s)
+                merge_err = (fd.merge_partials(outs, lses).float()
+                             - whole.float()).abs().max().item()
+                if merge_err > TOL[dtype]:
+                    raise AssertionError(f"flash_decode_partial {label} "
+                                         f"{dname}: merged blocks vs the "
+                                         f"ring kernel {merge_err}")
+            kb, vb, lb = blocks[min(1, len(blocks) - 1)]
+            hq = hk * g
+            bound, bound_by = flash_decode_bound(q, kb, lb, None,
+                                                 extra_bytes=b * hq * 4)
+            qt = q.transpose(1, 2)
+            kt = kb.repeat_interleave(g, dim=2).transpose(1, 2)
+            vt = vb.repeat_interleave(g, dim=2).transpose(1, 2)
+            valid = decode_valid_mask(lb, step, None)[:, None, None, :]
+            bias = torch.zeros((b, hq, 1, step), dtype=dtype, device="cuda"
+                               ).masked_fill(~valid, float("-inf"))
+
+            def library():
+                return torch.ops.aten._scaled_dot_product_efficient_attention(
+                    qt, kt, vt, bias, True)
+            try:
+                library()
+                lib_ms, lib_note = time_ms(library), None
+            except RuntimeError as e:
+                lib_ms, lib_note = None, str(e).splitlines()[0][:200]
+            e = {"ms": time_ms(lambda: fd.flash_decode_partial(q, kb, vb,
+                                                               lb)),
+                 "plain_ms": time_ms(lambda: fd.flash_decode_partial_torch(
+                     q, kb, vb, lb)),
+                 "bound_ms": bound, "bound_by": bound_by,
+                 "library_ms": lib_ms, "max_abs_err": err,
+                 "lse_max_abs_err": lse_err, "merge_max_abs_err": merge_err,
+                 "shape": {"B": b, "S_blk": step, "Hk": hk, "G": g, "dh": dh,
+                           "dtype": dname,
+                           "lengths": [int(x) for x in lb.tolist()]}}
+            if lib_note:
+                e["library_note"] = lib_note
+            out[f"{label} {dname}"] = e
+            log(f"kernel flash_decode_partial {label} ({dname}, B={b}, "
+                f"Hq={hq}, Hk={hk}, dh={dh}, {len(blocks)} block(s) of "
+                f"{step}): out max|err|={err:.3g} (tol {TOL[dtype]}), lse "
+                f"max|err|={lse_err:.3g}, merge {merge_err}; timed block "
+                f"lengths {e['shape']['lengths']}: {e['ms']:.5f} ms, bound "
+                f"{bound:.6f} ms ({bound_by}), plain {e['plain_ms']:.5f} ms, "
+                f"efficient attention + lse {lib_ms} ms"
+                + (f" ({lib_note})" if lib_note else ""))
+            del q, k, v, blocks, kt, vt, bias
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_batch(cfg, which: str) -> dict:
+    """Phase 16's prompts on the host: (a) the first 4 requests of phase
+    5's trace, (b) random tokens of ``SHARD_SEQ["lengths"]``; right-
+    padded, with their lengths."""
+    import numpy as np
+    from repro_torch.launch import serve
+    if which == "heads":
+        args = serve.build_parser().parse_args(SERVE_ARGS)
+        prompts = [r.prompt for r in serve.make_requests(args, cfg.vocab)[:4]]
+    else:
+        rng = np.random.default_rng(SHARD_SEQ["seed"])
+        prompts = [rng.integers(2, cfg.vocab, size=n).astype(np.int32)
+                   for n in SHARD_SEQ["lengths"]]
+    width = max(len(p) for p in prompts)
+    tokens = torch.zeros((len(prompts), width), dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = torch.from_numpy(np.asarray(p))
+    return {"tokens": tokens, "prompt_len": torch.tensor(
+        [len(p) for p in prompts], dtype=torch.int32)}
+
+
+def shard_foil(cfg, batch, max_len: int, n_decode: int) -> dict:
+    """The one-device run: ``ModelDef.prefill`` and ``n_decode`` greedy
+    ``decode`` steps; every step's logits and tokens kept on the host,
+    the model freed after."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import shard_serve as ss
+    from repro_torch.models.registry import get_model
+    torch.cuda.reset_peak_memory_stats()
+    model = get_model(cfg, "cuda")
+    params = model.init(ss.SEED)
+    b = batch["tokens"].shape[0]
+    cache = model.init_cache(b, ShapeConfig("serve", "decode", max_len, b))
+    logits, cache = model.prefill(params, {k: v.cuda()
+                                           for k, v in batch.items()}, cache)
+    steps = []
+    for i in range(n_decode + 1):
+        if i:
+            logits, cache = model.decode(params, tok, cache)
+        tok = ss.greedy(logits, cfg.vocab)
+        steps.append((logits.float().cpu(), tok[:, 0].cpu()))
+    peak = torch.cuda.max_memory_allocated()
+    del model, params, cache, logits, tok
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"steps": steps, "peak_bytes": peak}
+
+
+def shard_ranks(cfg, mesh_shape, batch, max_len: int, n_decode: int,
+                probe_mb: int | None = None) -> dict:
+    """``shard_serve.run`` on a ``mesh_shape`` mesh of rank processes on
+    the card ('model' groups gloo), the ranks' kernel-5 counts set to 0
+    just before and read just after; first, with ``probe_mb``, one
+    all-gather of that many MB a rank through the card mailboxes and
+    through host copies, timed."""
+    from repro_torch.launch import shard_serve as ss
+    from repro_torch.launch.mesh import make_mesh
+    torch.cuda.reset_peak_memory_stats()
+    with make_mesh(mesh_shape, ("data", "model"), local_backend="gloo",
+                   timeout=900.0) as mesh:
+        probe = None
+        if probe_mb:
+            probe = mesh.call(ss.rank_gather_probe, probe_mb)
+            log(f"shard transport: all-gather of {probe_mb} MB a rank over "
+                f"{mesh_shape[1]} ranks of the card, seconds (fastest of 3) "
+                f"per rank: card mailboxes (CUDA IPC) "
+                f"{[round(p['card'], 4) for p in probe]}, host copies + gloo "
+                f"{[round(p['host'], 4) for p in probe]}")
+            torch.cuda.empty_cache()
+        mesh.call(ss.rank_launches, True)
+        t0 = time.perf_counter()
+        with CardUsedPeak() as used:
+            res = ss.run(mesh, cfg, batch, n_decode, max_len=max_len)
+        res["wall_s"] = time.perf_counter() - t0
+        res["launches"] = mesh.call(ss.rank_launches)
+    res["card_used"] = used.peak
+    res["controller_peak"] = torch.cuda.max_memory_allocated()
+    res["probe"] = probe
+    return res
+
+
+def shard_check(label, cfg, foil, res, n_layers: int, kernel: str,
+                bitwise: bool) -> dict:
+    """Phase 16's gates on one layout: tokens equal to the foil's every
+    step, logits bitwise (``bitwise``) or within ``SHARD_SEQ_TOL`` x
+    max|logit|, ``kernel`` launched ``n_layers`` times a decode step on
+    every rank (the other variant never), every process's peak summed
+    under the limit. Returns the numbers the log and the kernels line
+    keep."""
+    other = ({"flash_decode", "flash_decode_partial"} - {kernel}).pop()
+    worst = 0.0
+    for i, ((want, tok), st) in enumerate(zip(foil["steps"], res["steps"])):
+        if not torch.equal(st["tokens"], tok):
+            raise AssertionError(f"shard {label} step {i}: tokens "
+                                 f"{st['tokens'].tolist()} vs the one-device "
+                                 f"run's {tok.tolist()}")
+        if bitwise:
+            if not torch.equal(st["logits"], want):
+                raise AssertionError(f"shard {label} step {i}: logits not "
+                                     "bitwise the one-device run's")
+        else:
+            rel = ((st["logits"] - want).abs().max()
+                   / want.abs().max()).item()
+            worst = max(worst, rel)
+            if not rel <= SHARD_SEQ_TOL:
+                raise AssertionError(f"shard {label} step {i}: logits off by "
+                                     f"{rel:.3g} x max|logit|")
+        for r, n in enumerate(st["launches"]):
+            want_n = 0 if i == 0 else n_layers
+            if n[kernel] != want_n or n[other] != 0:
+                raise AssertionError(f"shard {label} step {i} rank {r}: "
+                                     f"launches {n}, want {kernel} {want_n}")
+    n_dec = len(res["steps"]) - 1
+    totals = res["launches"]
+    for r, n in enumerate(totals):
+        if n[kernel] != n_dec * n_layers or n[other] != 0:
+            raise AssertionError(f"shard {label} rank {r}: launches {n} in "
+                                 f"the run, want {n_dec * n_layers}")
+    n_ranks = len(totals)
+    peaks = [max([res["build"][r]["peak_bytes"]]
+                 + [st["peak_bytes"][r] for st in res["steps"]])
+             for r in range(n_ranks)]
+    summed = sum(peaks) + res["controller_peak"]
+    if summed >= PEAK_LIMIT_BYTES:
+        raise AssertionError(f"shard {label}: summed peak "
+                             f"{summed / 2**30:.2f} GiB")
+    dec = res["steps"][1:]
+    med = [sorted(st["seconds"][r] for st in dec)[len(dec) // 2]
+           for r in range(n_ranks)]
+    share = [sum(st["collective_s"][r] for st in dec)
+             / sum(st["seconds"][r] for st in dec) for r in range(n_ranks)]
+    b = res["build"][0]
+    log(f"shard {label}: {cfg.name} depth {n_layers} {cfg.dtype}, plan "
+        f"batch_axes={b['plan']['batch_axes']} seq_axis="
+        f"{b['plan']['seq_axis']}; rank bytes: params {b['param_bytes']}, "
+        f"cache {b['cache_bytes']}; tokens equal every step, logits "
+        + ("bitwise" if bitwise else f"within {worst:.3g} x max|logit|")
+        + f"; {kernel} {n_layers} a decode step on each of {n_ranks} "
+        f"ranks; prefill {[round(x, 3) for x in res['steps'][0]['seconds']]}"
+        f" s; decode-step median {[round(x * 1e3, 1) for x in med]} ms, "
+        f"'model' collectives {[f'{x:.1%}' for x in share]} of it; peaks "
+        f"(GiB, ranks + controller) {[round(p / 2**30, 2) for p in peaks]} + "
+        f"{res['controller_peak'] / 2**30:.2f} = {summed / 2**30:.2f} (card "
+        f"used, sampled: {res['card_used'] / 2**30:.2f}); foil peak "
+        f"{foil['peak_bytes'] / 2**30:.2f} GiB; wall {res['wall_s']:.1f}s")
+    return {"launches": [n[kernel] for n in totals],
+            "decode_median_ms": [x * 1e3 for x in med],
+            "collective_share": share, "summed_peak_bytes": summed,
+            "max_rel_logit_err": worst, "prefill_s": res["steps"][0]["seconds"]}
+
+
+def shard_serve_phase() -> dict:
+    """Phase 16: the block variant's holds (c), then (a) the heads layout
+    and (b) the sequence layout, each after its one-device foil."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    holds = shard_flash_decode()
+    # kernel 5 at a rank's heads of (a): half of INTELLECT-1's kv heads
+    heads = hold_flash_decode([SHARD_HEADS_FD], seed=170,
+                              kernels=("flash_decode",))["flash_decode"]
+    out = {"holds": holds, "heads_kernel": heads[SHARD_HEADS_FD[0]]}
+    for which, conf, kernel, bitwise in (
+            ("heads", SHARD_HEADS, "flash_decode", True),
+            ("seq", SHARD_SEQ, "flash_decode_partial", False)):
+        cfg = get_config(conf["arch"])
+        for key in ("n_layers", "dtype"):
+            if conf[key] is not None:
+                cfg = dc.replace(cfg, **{key: conf[key]})
+        batch = shard_batch(cfg, which)
+        foil = shard_foil(cfg, batch, conf["max_len"], conf["n_decode"])
+        res = shard_ranks(cfg, conf["mesh"], batch, conf["max_len"],
+                          conf["n_decode"],
+                          probe_mb=256 if which == "heads" else None)
+        out[which] = shard_check(which, cfg, foil, res, cfg.n_layers,
+                                 kernel, bitwise)
+        out[which]["transport_probe"] = res["probe"]
+        del foil, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"shard phase: {time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dist-slots", type=int, default=None,
@@ -4504,6 +4846,9 @@ def main(argv=None) -> None:
     ap.add_argument("--fsdp-only", action="store_true",
                     help="run only phase 15, the hybrid DiLoCo-FSDP step "
                          "(after the build), and print no result")
+    ap.add_argument("--shard-serve-only", action="store_true",
+                    help="run only phase 16, sharded serving (after the "
+                         "build), and print no result")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False     # fp32 stays fp32
@@ -4539,6 +4884,10 @@ def main(argv=None) -> None:
     if args.fsdp_only:
         fsdp_phase()
         log(f"phase 15 alone passed in {time.perf_counter() - t0:.1f}s")
+        return
+    if args.shard_serve_only:
+        shard_serve_phase()
+        log(f"phase 16 alone passed in {time.perf_counter() - t0:.1f}s")
         return
     kernels = ([check_flash_decode()] + check_int8_codec()
                + [check_flash_decode_paged()])
@@ -4669,6 +5018,25 @@ def main(argv=None) -> None:
                      sharded_bound_ms=c["bound_ms"],
                      sharded_library_ms=c["library_ms"],
                      sharded_max_abs_err=c["max_abs_err"])
+    del fs
+    gc.collect()
+    torch.cuda.empty_cache()
+    sh = shard_serve_phase()
+    timed = sh["holds"][f"{SHARD_FD_CASES[0][0]} float32"]
+    kernels[0].update(
+        launches_shard_serve={"heads": sh["heads"]["launches"],
+                              "seq_partial": sh["seq"]["launches"]},
+        partial_ms=timed["ms"], partial_plain_ms=timed["plain_ms"],
+        partial_bound_ms=timed["bound_ms"],
+        partial_bound_by=timed["bound_by"],
+        partial_library_ms=timed["library_ms"],
+        partial_max_abs_err=timed["max_abs_err"],
+        partial_lse_max_abs_err=timed["lse_max_abs_err"],
+        partial_shape=timed["shape"], partial_holds=sh["holds"],
+        heads_rank=sh["heads_kernel"],
+        shard_serve={k: {x: sh[k][x] for x in (
+            "decode_median_ms", "collective_share", "summed_peak_bytes",
+            "max_rel_logit_err")} for k in ("heads", "seq")})
     log(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -24,9 +24,14 @@ reports its traceback and exits; a rank that dies, or one whose oldest
 pending command makes no progress within the timeout, makes the
 controller raise ``RankFailure`` and the mesh unusable. ``close()``
 stops every rank and leaves no child process.
+
+Inside the ranks, ``all_gather_list`` and ``all_reduce_sum`` (below) are
+the forward collectives of the FSDP and serve steps over a rank's
+groups; ``timed_collectives`` lets a rank driver time them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import itertools
@@ -383,3 +388,164 @@ class RankMesh:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+# -- collectives over a rank's process groups ---------------------------------
+#
+# Forward-only gathers and sums for code that runs inside the ranks (the
+# FSDP step's MoE routing, the serve step). Gloo gathers no CUDA tensor,
+# and NCCL takes one rank a card, so the ranks that share one card and a
+# gloo group move a gather's payload through ``CardMailboxes`` (device
+# buffers opened by CUDA IPC; gloo only orders the copies), and other
+# CUDA tensors on a gloo group go through host copies.
+
+# bytes of one rank's mailbox: a gather moves its payload in pieces of it
+MAILBOX_BYTES = 256 << 20
+
+
+def _host_staged(t: torch.Tensor, group) -> bool:
+    """A CUDA tensor on a gloo group goes through host copies."""
+    import torch.distributed as dist
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+class CardMailboxes:
+    """A transport for a gloo group of rank processes that share one
+    CUDA device: each rank's device buffer of ``nbytes``, opened by the
+    others through CUDA IPC, so a gather's payload moves card to card;
+    gloo only orders it (a barrier after the writes and one after the
+    reads). Collective to make: every rank of ``group`` at once."""
+
+    def __init__(self, group, device, nbytes: int):
+        import torch.distributed as dist
+        from torch.multiprocessing.reductions import reduce_tensor
+        self.group, self.nbytes = group, nbytes
+        self.me = dist.get_rank(group)
+        n = dist.get_world_size(group)
+        self.buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        # one handle a receiver: CUDA IPC counts each handle's opening
+        # against the producer's buffer, and releases it with the view
+        handles = [None] * n
+        dist.all_gather_object(handles, [
+            None if r == self.me else reduce_tensor(self.buf)
+            for r in range(n)], group=group)
+        self.peers = [self.buf if r == self.me else h[self.me][0](
+            *h[self.me][1]) for r, h in enumerate(handles)]
+
+    def all_gather(self, t: torch.Tensor) -> list:
+        """Every rank's ``t`` (equal shapes), in group order, in pieces
+        of at most ``nbytes``."""
+        import torch.distributed as dist
+        flat = t.contiguous().view(-1).view(torch.uint8)
+        outs = [torch.empty_like(flat) for _ in self.peers]
+        for lo in range(0, flat.numel(), self.nbytes):
+            hi = min(flat.numel(), lo + self.nbytes)
+            self.buf[:hi - lo].copy_(flat[lo:hi])
+            torch.cuda.current_stream(t.device).synchronize()
+            dist.barrier(group=self.group)
+            for out, peer in zip(outs, self.peers):
+                out[lo:hi].copy_(peer[:hi - lo])
+            torch.cuda.current_stream(t.device).synchronize()
+            dist.barrier(group=self.group)
+        return [o.view(t.dtype).view(t.shape) for o in outs]
+
+
+# group -> its CardMailboxes, or None where its ranks are on several
+# cards (``use_card_mailboxes``)
+_MAILBOXES: dict = {}
+# the open ``timed_collectives`` records
+_CLOCKS: list = []
+
+
+def use_card_mailboxes(group, device) -> bool:
+    """Route ``all_gather_list`` over ``group`` (gloo) through
+    ``CardMailboxes`` when every rank of it runs on the same card as
+    this one (else leave it on host copies). Collective; returns
+    whether it does."""
+    import socket
+
+    import torch.distributed as dist
+    device = torch.device(device)
+    if (device.type != "cuda" or dist.get_world_size(group) == 1
+            or dist.get_backend(group) != "gloo"):
+        return False
+    if group not in _MAILBOXES:
+        where = [None] * dist.get_world_size(group)
+        dist.all_gather_object(where, (socket.gethostname(),
+                                       torch.cuda.current_device()),
+                               group=group)
+        _MAILBOXES[group] = (CardMailboxes(group, device, MAILBOX_BYTES)
+                             if len(set(where)) == 1 else None)
+    return _MAILBOXES[group] is not None
+
+
+def release_card_mailboxes() -> None:
+    """Close this rank's views of its peers' mailboxes, then (after a
+    barrier over the world: every rank has closed its views) free its
+    own and collect their CUDA IPC records, so no rank leaves while a
+    peer still maps its buffer. Collective."""
+    import torch.distributed as dist
+    for box in _MAILBOXES.values():
+        if box is not None:
+            box.peers = []
+    if dist.is_initialized():
+        dist.barrier()
+    _MAILBOXES.clear()
+    if torch.cuda.is_initialized():
+        torch.cuda.ipc_collect()
+
+
+@contextlib.contextmanager
+def timed_collectives():
+    """While open, ``all_gather_list``'s seconds (host copies included)
+    add up in the yielded record's ``"collective_s"``."""
+    rec = {"collective_s": 0.0}
+    _CLOCKS.append(rec)
+    try:
+        yield rec
+    finally:
+        _CLOCKS.remove(rec)
+
+
+def all_gather_list(t: torch.Tensor, group) -> list:
+    """Every rank's ``t`` (equal shapes) over ``group``, in group order,
+    forward only. A gloo group takes CUDA tensors through its
+    ``CardMailboxes`` when it has them, else through host copies (it
+    gathers none itself); NCCL gathers on the card."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    if n == 1:
+        return [t]
+    t0 = time.perf_counter()
+    if t.is_cuda and _MAILBOXES.get(group) is not None:
+        parts = _MAILBOXES[group].all_gather(t)
+    elif _host_staged(t, group):
+        parts = host_all_gather(t, group)
+    else:
+        src = t.contiguous()
+        parts = [torch.empty_like(src) for _ in range(n)]
+        dist.all_gather(parts, src, group=group)
+    for rec in _CLOCKS:
+        rec["collective_s"] += time.perf_counter() - t0
+    return parts
+
+
+def host_all_gather(t: torch.Tensor, group) -> list:
+    """``all_gather_list`` of a CUDA tensor over a gloo group through
+    host copies."""
+    import torch.distributed as dist
+    src = t.cpu()
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    return [p.to(t.device) for p in parts]
+
+
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``t`` over ``group`` (a new tensor)."""
+    import torch.distributed as dist
+    if dist.get_world_size(group) == 1:
+        return t
+    staged = _host_staged(t, group)
+    out = t.cpu() if staged else t.clone()
+    dist.all_reduce(out, group=group)
+    return out.to(t.device) if staged else out

@@ -77,6 +77,14 @@
 //     global max, divides by max(l, 1e-30) (an empty slot gives exactly
 //     0) and writes q's dtype; a second cluster barrier keeps every
 //     block's shared memory alive until it has been read.
+//   * Block variant (flash_decode_partial_launch). A cache split by
+//     sequence over ranks is attended block by block: each rank calls the
+//     kernel on its cells with its block's live count as the length and
+//     no window, and the lse pointer set. The combine already holds each
+//     head's global (m, l); the thread that writes channel 0 of a head
+//     also stores lse = m + log(l), or -inf for a block with no live
+//     cell (whose out is 0). A null lse is the plain kernel: one branch
+//     a head in the combine, no other change.
 // Every sum runs in a fixed order, so two calls are bitwise equal and the
 // paged kernel is bitwise equal to the dense kernel on the gathered view
 // for any block size. The scale dh^-0.5 is applied to the fp32 score after
@@ -85,6 +93,7 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #define FD_TILE 32            // cache cells per stage (one per lane)
@@ -284,9 +293,9 @@ template <typename T, int LPC, int HPW, bool kPaged>
 __global__ void __launch_bounds__(kThreads) flash_decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int* __restrict__ length,
-    const int* __restrict__ table, T* __restrict__ out, int s_max, int blk,
-    int n_blocks, int hk_n, int g_n, int n_hg, int dh, int window,
-    float scale, int n_tbl) {
+    const int* __restrict__ table, T* __restrict__ out,
+    float* __restrict__ lse, int s_max, int blk, int n_blocks, int hk_n,
+    int g_n, int n_hg, int dh, int window, float scale, int n_tbl) {
   constexpr int kCpw = 32 / LPC;              // cells per pass in P.V
   constexpr int kHg = FD_WARPS * HPW;         // heads per cluster
   constexpr int kNcp = LPC * sizeof(T) / 2;   // 16-byte chunks a row, to
@@ -529,6 +538,9 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(
       a = fmaf(as[s], e, a);
     }
     store(out + (q_row + g) * dh + d, a / fmaxf(l_all, 1e-30f));
+    // the block variant: one log-sum-exp a query head (-inf: no cell)
+    if (lse != nullptr && d == 0)
+      lse[q_row + g] = l_all > 0.f ? m_all + logf(l_all) : -INFINITY;
   }
   if (!one_pass || (int)threadIdx.x >= gh * nd) cluster_arrive();
   FD_STAMP(6, threadIdx.x == 0);                    // 6: output written
@@ -556,7 +568,8 @@ inline size_t launch_smem(int g_n, int dh, int elt, int s_max, int blk,
 
 template <typename T, int LPC, int HPW, bool kPaged>
 int launch_one(const void* q, const void* k, const void* v,
-               const void* length, const void* table, void* out, int b,
+               const void* length, const void* table, void* out,
+               float* lse, int b,
                int s_max, int blk, int n_blocks, int hk_n, int g_n, int dh,
                int window, float scale, cudaStream_t stream) {
   auto kernel = flash_decode_kernel<T, LPC, HPW, kPaged>;
@@ -585,8 +598,8 @@ int launch_one(const void* q, const void* k, const void* v,
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(length),
-      static_cast<const int*>(table), static_cast<T*>(out), s_max, blk,
-      n_blocks, hk_n, g_n, n_hg, dh, window, scale,
+      static_cast<const int*>(table), static_cast<T*>(out), lse, s_max,
+      blk, n_blocks, hk_n, g_n, n_hg, dh, window, scale,
       n_tbl_for(s_max, blk, kPaged));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -596,7 +609,8 @@ int launch_one(const void* q, const void* k, const void* v,
 // pool of n_blocks blocks of blk cells and s_max = nb * blk.
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* length,
-           const void* table, void* out, int b, int s_max, int blk,
+           const void* table, void* out, float* lse, int b, int s_max,
+           int blk,
            int n_blocks, int hk_n, int g_n, int dh, int window, float scale,
            cudaStream_t stream) {
   int lpc = 1;
@@ -604,9 +618,9 @@ int launch(const void* q, const void* k, const void* v, const void* length,
   const bool paged = table != nullptr;
   const bool many = hpw_for(g_n) > 1;
 #define FLASH_DECODE_ONE(LPC, HPW, PAGED)                                    \
-  return launch_one<T, LPC, HPW, PAGED>(q, k, v, length, table, out, b,      \
-                                        s_max, blk, n_blocks, hk_n, g_n, dh, \
-                                        window, scale, stream)
+  return launch_one<T, LPC, HPW, PAGED>(q, k, v, length, table, out, lse,  \
+                                        b, s_max, blk, n_blocks, hk_n, g_n,  \
+                                        dh, window, scale, stream)
 #define FLASH_DECODE_LPC(LPC)                                                \
   if (paged) {                                                               \
     if (many) FLASH_DECODE_ONE(LPC, 4, true);                                \
@@ -660,10 +674,29 @@ int flash_decode_launch(const void* q, const void* k, const void* v,
                         int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, length, nullptr, out, b, s_max, 1,
-                                 0, hk_n, g_n, dh, window, scale, st);
-  return launch<float>(q, k, v, length, nullptr, out, b, s_max, 1, 0, hk_n,
-                       g_n, dh, window, scale, st);
+    return launch<__nv_bfloat16>(q, k, v, length, nullptr, out, nullptr, b,
+                                 s_max, 1, 0, hk_n, g_n, dh, window, scale,
+                                 st);
+  return launch<float>(q, k, v, length, nullptr, out, nullptr, b, s_max, 1,
+                       0, hk_n, g_n, dh, window, scale, st);
+}
+
+// The block variant: the dense kernel over one block of a cache, with no
+// window (live cells: [0, length)), that also writes lse (B, Hq) fp32, the
+// log-sum-exp of the scaled scores of the cells it read (-inf for a slot
+// with none; its out is 0). Partials of disjoint blocks merge exactly
+// (kernels/flash_decode.py: merge_partials).
+int flash_decode_partial_launch(const void* q, const void* k, const void* v,
+                                const void* length, void* out, void* lse,
+                                int b, int s_max, int hk_n, int g_n, int dh,
+                                float scale, int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  if (is_bf16)
+    return launch<__nv_bfloat16>(q, k, v, length, nullptr, out, l, b, s_max,
+                                 1, 0, hk_n, g_n, dh, -1, scale, st);
+  return launch<float>(q, k, v, length, nullptr, out, l, b, s_max, 1, 0,
+                       hk_n, g_n, dh, -1, scale, st);
 }
 
 // The paged cache: k_pool/v_pool (N_blocks, blk, Hk, dh) contiguous,
@@ -677,11 +710,12 @@ int flash_decode_paged_launch(const void* q, const void* k_pool,
                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, length, table, out, b,
-                                 nb * blk, blk, n_blocks, hk_n, g_n, dh,
-                                 window, scale, st);
-  return launch<float>(q, k_pool, v_pool, length, table, out, b, nb * blk,
-                       blk, n_blocks, hk_n, g_n, dh, window, scale, st);
+    return launch<__nv_bfloat16>(q, k_pool, v_pool, length, table, out,
+                                 nullptr, b, nb * blk, blk, n_blocks, hk_n,
+                                 g_n, dh, window, scale, st);
+  return launch<float>(q, k_pool, v_pool, length, table, out, nullptr, b,
+                       nb * blk, blk, n_blocks, hk_n, g_n, dh, window, scale,
+                       st);
 }
 
 }  // extern "C"

@@ -24,7 +24,13 @@ the dense kernel on the gathered view, and a call repeats bit for bit.
 tensors and raise on what it does not take; for CPU tensors they run
 ``flash_decode_torch`` and ``flash_decode_paged_torch``, the plain
 PyTorch versions of the same functions, which are also the kernel's
-oracle in the tests and in ``chip_smoke.py``. ``trace_phases`` times one
+oracle in the tests and in ``chip_smoke.py``. ``flash_decode_partial``
+is the block variant for a cache split by sequence over ranks (the
+sharded serve step's seq layout): the dense kernel over one block that
+also writes each query head's log-sum-exp, so ``merge_partials`` (plain
+PyTorch, fp32, in rank order) combines the blocks into the attention
+over the whole cache; ``flash_decode_partial_torch`` is its plain
+version. ``trace_phases`` times one
 launch block by block, from a build that stamps each phase.
 """
 from __future__ import annotations
@@ -86,6 +92,49 @@ def flash_decode_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, t, hq, dh).to(q.dtype)
 
 
+def flash_decode_partial_torch(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, length: torch.Tensor):
+    """Plain PyTorch version of the block variant: attention of q
+    (B, 1, Hq, dh) over one block of a cache, k/v (B, S_blk, Hk, dh),
+    whose cells [0, length) are live (no window). Returns (out, lse):
+    out as ``flash_decode_torch`` gives it (0 for a slot with no live
+    cell), lse (B, Hq) fp32 the log-sum-exp of the block's scaled
+    scores (-inf for such a slot)."""
+    b, t, hq, dh = q.shape
+    s_max, hk = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, t, hk, hq // hk, dh)
+    s = torch.einsum("btkgd,bskd->bkgts", qg, k.float()) * dh ** -0.5
+    valid = decode_valid_mask(length, s_max, None)[:, None, None, None]
+    s = s.masked_fill(~valid, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m).masked_fill(~valid, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgts,bskd->btkgd", p / l.clamp_min(1e-30),
+                       v.float())
+    lse = torch.where(l > 0, m + torch.log(l), float("-inf"))
+    return (out.reshape(b, t, hq, dh).to(q.dtype),
+            lse.reshape(b, hq).float())
+
+
+def merge_partials(outs, lses) -> torch.Tensor:
+    """Merge the block variant's partials of disjoint blocks of one cache
+    into the attention over all of them: outs (B, 1, Hq, dh) and lses
+    (B, Hq), one pair a block, weighted by exp(lse - max lse) and summed
+    in fp32 in the given (rank) order. Returns the outs' dtype; a slot
+    with no live cell in any block gives 0. Plain PyTorch: elementwise
+    over (B, Hq, dh), no kernel."""
+    lse = torch.stack([x.float() for x in lses])               # (n, B, Hq)
+    top = lse.amax(dim=0)
+    top = torch.where(torch.isfinite(top), top, 0.0)
+    w = torch.exp(lse - top)                                   # -inf -> 0
+    acc = None
+    for o, wr in zip(outs, w):
+        part = o.float() * wr[:, None, :, None]
+        acc = part if acc is None else acc + part
+    total = w.sum(dim=0)[:, None, :, None]
+    return (acc / total.clamp_min(1e-30)).to(outs[0].dtype)
+
+
 def flash_decode_paged_torch(q: torch.Tensor, k_pool: torch.Tensor,
                              v_pool: torch.Tensor, table: torch.Tensor,
                              length: torch.Tensor, *,
@@ -113,6 +162,10 @@ def _signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.flash_decode_paged_launch.restype = ctypes.c_int
+    lib.flash_decode_partial_launch.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.flash_decode_partial_launch.restype = ctypes.c_int
     lib.flash_decode_smem_bytes.argtypes = [ctypes.c_int] * 6
     lib.flash_decode_smem_bytes.restype = ctypes.c_longlong
     return lib
@@ -195,6 +248,45 @@ def _launch_dense(lib, q, k, v, length, window) -> torch.Tensor:
 
 
 flash_decode.launches = 0
+
+
+def flash_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         length: torch.Tensor):
+    """The block variant: q (B, 1, Hq, dh), k/v (B, S_blk, Hk, dh) one
+    block of a cache split by sequence, length (B,) int32 its live cells
+    (a prefix [0, length) of the block; no window). Returns (out, lse):
+    out (B, 1, Hq, dh) in q's dtype, lse (B, Hq) fp32 (-inf and out 0
+    for a slot with no live cell); ``merge_partials`` combines blocks. A
+    CUDA tensor launches the kernel with its log-sum-exp output (counted
+    in ``flash_decode_partial.launches``); a CPU tensor runs
+    ``flash_decode_partial_torch``."""
+    if q.device.type == "cpu":
+        return flash_decode_partial_torch(q, k, v, length)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode_partial: unsupported device "
+                         f"{q.device}")
+    _check(q, k, v, length, "flash_decode_partial")
+    if k.shape[0] != q.shape[0]:
+        raise ValueError(f"flash_decode_partial: k/v shape "
+                         f"{tuple(k.shape)} vs q {tuple(q.shape)}")
+    b, _, hq, dh = q.shape
+    s_blk, hk = k.shape[1], k.shape[2]
+    _check_smem(hq // hk, dh, q.dtype == torch.bfloat16, s_blk, 1, False)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, hq), dtype=torch.float32, device=q.device)
+    err = _lib().flash_decode_partial_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), b, s_blk, hk, hq // hk, dh,
+        float(dh ** -0.5), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_decode_partial: kernel launch failed "
+                           f"with CUDA error {err}")
+    flash_decode_partial.launches += 1
+    return out, lse
+
+
+flash_decode_partial.launches = 0
 
 
 @functools.cache

@@ -8,7 +8,9 @@ For each cell:
   * derive the plan and every parameter's layout, and allocate rank 0's
     block of the train state as fake tensors (no memory);
   * run the train step (forward, backward, AdamW) and the DiLoCo outer
-    sync (the int8 ring, plain codec) once each under
+    sync (the int8 ring, plain codec) once each, or for a prefill or
+    decode cell the serve step (``build_serve_step``) on rank 0's block
+    of the parameters and of the cache (``local_cache``), under
     ``analysis.op_cost.OpCounter`` and a live-memory tracker, and write
     FLOPs, HBM bytes (unfused upper bound), wire bytes per collective,
     the roofline on the H100 and the memory per rank to JSON under
@@ -19,10 +21,10 @@ versions of the kernels, as the reference's dry run lowers its ``jnp``
 paths (``quant_impl="jnp"``) and never the Pallas kernels.
 
 Not ported (recorded as ``{"not_ported": ...}``, counted apart from
-failures): prefill and decode cells (sharded serving), and train cells
-whose plan sets ``act_seq_axis`` (sequence parallelism); both wait for
-the next slice (ROADMAP §1). Unsupported shapes are ``"skipped"``, as in
-the reference.
+failures): train cells whose plan sets ``act_seq_axis`` (sequence
+parallelism in training, every multi-pod train cell but the SSM and
+hybrid ones); they wait for the next slice (ROADMAP §1). Unsupported
+shapes are ``"skipped"``, as in the reference.
 
 Run a single cell:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mamba2-130m \\
@@ -42,10 +44,8 @@ import time
 
 OUT_DIR = pathlib.Path(__file__).resolve().parents[3] / "experiments" \
     / "dryrun_torch"
-NOT_PORTED_SERVE = ("sharded serving (build_serve_step, cache_pspecs): "
-                    "ROADMAP §1, slice 12")
-NOT_PORTED_SP = ("sequence parallelism (act_seq_axis): ROADMAP §1, "
-                 "slice 12")
+NOT_PORTED_SP = ("sequence parallelism in training (act_seq_axis): "
+                 "ROADMAP §1, slice 13")
 MESH_AXES = {"single": {"data": 16, "model": 16},
              "multi": {"pod": 2, "data": 16, "model": 16}}
 
@@ -58,17 +58,22 @@ def _write(result: dict, out_dir: pathlib.Path) -> dict:
     return result
 
 
-def _tensors(tree) -> list:
-    """Every tensor of a tree of dicts, tuples and named tuples."""
+def tree_tensors(tree) -> list:
+    """Every tensor of a tree of dicts, tuples, named tuples and
+    dataclasses (a cache's ``KVCache`` leaves)."""
+    import dataclasses
     if isinstance(tree, dict):
-        return [t for k in sorted(tree) for t in _tensors(tree[k])]
+        return [t for k in sorted(tree) for t in tree_tensors(tree[k])]
     if isinstance(tree, (tuple, list)):
-        return [t for x in tree for t in _tensors(x)]
+        return [t for x in tree for t in tree_tensors(x)]
+    if dataclasses.is_dataclass(tree):
+        return [t for f in dataclasses.fields(tree)
+                for t in tree_tensors(getattr(tree, f.name))]
     return [tree] if hasattr(tree, "element_size") else []
 
 
-def _nbytes(tree) -> int:
-    return sum(t.numel() * t.element_size() for t in _tensors(tree))
+def tree_nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_tensors(tree))
 
 
 def _measure(tag: str, label: str, result: dict, fn, args, tracked,
@@ -80,7 +85,7 @@ def _measure(tag: str, label: str, result: dict, fn, args, tracked,
 
     from repro_torch.analysis import op_cost, roofline
     mt = MemTracker()
-    mt.track_external(*_tensors(tracked))
+    mt.track_external(*tree_tensors(tracked))
     counter = op_cost.OpCounter()
     with mt, counter:
         fn(*args)
@@ -149,8 +154,8 @@ def trace(cfg, shape, plan, mesh, *, sync_too: bool = True,
         batch = {key: fake(v) for key, v in model.input_specs(shape).items()}
         _measure("train_step", label, result, train_step, (state, batch),
                  [state], roofline.model_flops_for(cfg, shape), n_chips,
-                 {"param_opt_bytes": _nbytes(state),
-                  "param_bytes": _nbytes(state.params)})
+                 {"param_opt_bytes": tree_nbytes(state),
+                  "param_bytes": tree_nbytes(state.params)})
         if sync is not None:
             params = state.params
             own = (lambda t: t[0]) if dax else (lambda t: t)
@@ -168,8 +173,49 @@ def trace(cfg, shape, plan, mesh, *, sync_too: bool = True,
             _measure("sync_step", label, result, sync,
                      (params, outer, weights), [params, outer],
                      float(cfg.param_count()), n_chips,
-                     {"param_outer_bytes": _nbytes(params)
-                      + _nbytes(outer)})
+                     {"param_outer_bytes": tree_nbytes(params)
+                      + tree_nbytes(outer)})
+    return result
+
+
+def trace_serve(cfg, shape, plan, mesh, *, label: str = "") -> dict:
+    """Rank 0's serve step of ``cfg`` at ``shape`` (a prefill or decode
+    cell) under ``plan`` on ``mesh`` (a ``DeviceMesh`` over a fake
+    world), traced once on fake tensors: the whole inputs, rank 0's
+    block of the parameters and of a fresh cache. Returns the plan, the
+    rank count and the step's roofline, collectives and memory (the
+    parameter and cache bytes of the rank beside its live peak)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.analysis import roofline
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import step as step_lib
+
+    n_chips = int(mesh.size())
+    model = get_model(cfg, device="cpu")
+    kind = shape.kind
+    result = {"plan": {"diloco_axis": plan.diloco_axis,
+                       "n_workers": plan.n_workers,
+                       "batch_axes": plan.batch_axes, "remat": plan.remat,
+                       "seq_axis": plan.seq_axis,
+                       "microbatches": plan.microbatches},
+              "n_chips": n_chips}
+    # the groups are made outside fake mode (they hold real tensors)
+    fn, _ = step_lib.build_serve_step(model, plan, mesh, kind)
+    with FakeTensorMode():
+        params = step_lib.local_params(model, plan, mesh)
+        cache = step_lib.local_cache(model, plan, mesh, shape.global_batch,
+                                     shape)
+        specs = model.input_specs(shape)
+        inputs = {k: torch.zeros(m.shape, dtype=m.dtype)
+                  for k, m in specs.items()}
+        if kind == "decode":
+            inputs = inputs["token"]
+        _measure("serve_step", label, result, fn, (params, inputs, cache),
+                 [params, cache], roofline.model_flops_for(cfg, shape),
+                 n_chips, {"param_bytes": tree_nbytes(params),
+                           "cache_bytes": tree_nbytes(cache)})
     return result
 
 
@@ -187,15 +233,16 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
     if not cfg.supports(shape):
         return _write(dict(result, skipped="no sub-quadratic path for "
                            "500k dense attn"), out_dir)
-    if shape.kind != "train":
-        return _write(dict(result, not_ported=NOT_PORTED_SERVE), out_dir)
     plan = make_plan(cfg, shape, MESH_AXES[mesh_kind])
     if plan.act_seq_axis:
         return _write(dict(result, not_ported=NOT_PORTED_SP), out_dir)
     mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
-    result.update(trace(cfg, shape, plan, mesh, sync_too=sync_too,
-                        quant=quant,
-                        label=f"{arch}/{shape_name}/{mesh_kind}"))
+    label = f"{arch}/{shape_name}/{mesh_kind}"
+    if shape.kind != "train":
+        result.update(trace_serve(cfg, shape, plan, mesh, label=label))
+    else:
+        result.update(trace(cfg, shape, plan, mesh, sync_too=sync_too,
+                            quant=quant, label=label))
     result["elapsed_s"] = round(time.time() - t0, 1)
     return _write(result, out_dir)
 

@@ -7,11 +7,15 @@ JAX package: KV is never expanded to Hq heads. Unlike the JAX package,
 ``cache_update`` writes in place; callers that reuse a dense cache must
 hand in a fresh one (see ``serving.engine``), and a paged cache's pool
 is shared by every slot, so its writes land where the slot's table
-says (``serving.paging`` keeps the tables).
+says (``serving.paging`` keeps the tables). A ``ShardedKVCache`` is one
+rank's block of a cache laid over ranks by heads or by sequence (the
+sharded serve step): its writes and decode attention do that rank's
+part and gather the rest.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
@@ -38,7 +42,108 @@ class KVCache:
                                device=device))
 
     def layer(self, i: int) -> "KVCache":
-        return KVCache(self.k[i], self.v[i], self.length[i])
+        return dataclasses.replace(self, k=self.k[i], v=self.v[i],
+                                   length=self.length[i])
+
+
+@dataclasses.dataclass
+class ShardedKVCache(KVCache):
+    """One rank's block of a KV cache laid over the 'model' axis
+    (``train.step.build_serve_step``): k/v hold the block, ``length``
+    the slots' global lengths (every rank keeps them). One layout:
+
+      * ``heads = (lo, hi, n)``: kv heads [lo, hi) of n. Decode runs the
+        flash-decode kernel at this rank's heads (query heads [lo G,
+        hi G)) and gathers the heads' outputs;
+      * ``seq = (off, s_ring)``: cells [off, off + S_blk) of a cache (or
+        SWA ring) of s_ring cells. Decode writes the new token's K/V on
+        the rank that holds its cell, runs the block variant on every
+        rank (``block_length`` live cells, no window: a ring is never
+        wider than its window) and merges the blocks' partials.
+
+    ``all_gather(t)`` is the group's forward all-gather (a list in rank
+    order). ``layer(i)`` keeps the layout."""
+    heads: tuple | None = None
+    seq: tuple | None = None
+    all_gather: Callable | None = None
+
+    def own(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``t`` laid out as the whole cache
+        (..., S, Hk, dh)."""
+        if self.heads is not None:
+            return t[..., self.heads[0]:self.heads[1], :]
+        off = self.seq[0]
+        return t[..., off:off + self.k.shape[-3], :, :]
+
+    def write(self, fn, k_new: torch.Tensor, v_new: torch.Tensor) -> None:
+        """``fn(cache, k, v)``, a write into a dense cache, on this block:
+        heads laid, the block and the rank's heads of k/v; seq laid, a
+        whole-cache copy holding this block, cut back after."""
+        if self.heads is not None:
+            fn(KVCache(self.k, self.v, self.length), self.own(k_new),
+               self.own(v_new))
+            return
+        shape = (tuple(self.k.shape[:-3]) + (self.seq[1],)
+                 + tuple(self.k.shape[-2:]))
+        full = KVCache(self.k.new_zeros(shape), self.v.new_zeros(shape),
+                       self.length)
+        self.own(full.k).copy_(self.k)
+        self.own(full.v).copy_(self.v)
+        fn(full, k_new, v_new)
+        self.k.copy_(self.own(full.k))
+        self.v.copy_(self.own(full.v))
+
+    def update_token(self, k_new, v_new, rolling: bool) -> None:
+        """A decode step's write (one token) on a seq-laid block: the
+        dense ``cache_update``'s cell (the ring cursor, or the length
+        clamped to the last cell), written only where this block holds
+        it; every rank advances the lengths."""
+        off, s_ring = self.seq
+        blk = self.k.shape[-3]
+        cell = self.length % s_ring if rolling else self.length
+        loc = cell.clamp(0, s_ring - 1).long() - off
+        mine = ((loc >= 0) & (loc < blk))[:, None, None]
+        rows = torch.arange(self.k.shape[0], device=loc.device)
+        idx = loc.clamp(0, blk - 1)
+        for buf, new in ((self.k, k_new), (self.v, v_new)):
+            buf[rows, idx] = torch.where(mine, new[:, 0].to(buf.dtype),
+                                         buf[rows, idx])
+        self.length += 1
+
+    def attend(self, q: torch.Tensor, window: int | None) -> torch.Tensor:
+        from repro_torch.kernels import flash_decode
+        if self.heads is not None:
+            lo, hi, n = self.heads
+            g = q.shape[2] // n
+            o = flash_decode.flash_decode(
+                q[:, :, lo * g:hi * g].contiguous(), self.k, self.v,
+                self.length, window=window)
+            return torch.cat(self.all_gather(o), dim=2)
+        off, s_ring = self.seq
+        out, lse = flash_decode.flash_decode_partial(
+            q, self.k, self.v,
+            block_length(self.length, off, self.k.shape[-3], s_ring))
+        return flash_decode.merge_partials(self.all_gather(out),
+                                           self.all_gather(lse))
+
+
+def block_length(length: torch.Tensor, off: int, s_blk: int,
+                 s_ring: int) -> torch.Tensor:
+    """Live cells of the block [off, off + s_blk) of a cache of s_ring
+    cells, as a prefix of the block: clamp(min(length, s_ring) - off,
+    0, s_blk). Exact for a full-causal cache and for an SWA ring of
+    min(max_len, window) cells (``transformer.init_cache``): a ring is
+    never wider than its window, so its live cells are exactly the
+    cells below min(length, s_ring)."""
+    return (length.clamp(max=s_ring) - off).clamp(0, s_blk).to(torch.int32)
+
+
+def local_heads(cache, t: torch.Tensor) -> torch.Tensor:
+    """``t`` (..., Hk, dh) cut to the kv heads ``cache`` holds (a
+    heads-laid ``ShardedKVCache``), else ``t``."""
+    if isinstance(cache, ShardedKVCache) and cache.heads is not None:
+        return cache.own(t)
+    return t
 
 
 @dataclasses.dataclass
@@ -238,6 +343,8 @@ def decode_attention(q: torch.Tensor, cache: KVCache | PagedKVCache, *,
     the table), on a CPU tensor it runs that kernel's plain PyTorch
     version."""
     from repro_torch.kernels import flash_decode
+    if isinstance(cache, ShardedKVCache):
+        return cache.attend(q, window)
     if isinstance(cache, PagedKVCache):
         return flash_decode.flash_decode_paged(
             q, cache.k, cache.v, cache.table, cache.length, window=window)
@@ -257,6 +364,14 @@ def cache_update(cache: KVCache | PagedKVCache, k_new: torch.Tensor,
     (mutated) cache."""
     if isinstance(cache, PagedKVCache):
         return paged_cache_update(cache, k_new, v_new, rolling=rolling)
+    if isinstance(cache, ShardedKVCache):
+        if cache.seq is not None and k_new.shape[1] == 1:
+            cache.update_token(k_new, v_new, rolling)
+        else:
+            cache.write(lambda c, k, v: cache_update(c, k, v,
+                                                     rolling=rolling),
+                        k_new, v_new)
+        return cache
     b, s_max = cache.k.shape[0], cache.k.shape[1]
     s_new = k_new.shape[1]
     start = cache.length % s_max if rolling else cache.length      # (B,)

@@ -5,8 +5,10 @@ the training loss (cross-entropy + max-z).
 Parameters are plain nested dicts of tensors with the JAX package's
 layout (stacked ``(L, ...)`` layers, ``x @ W`` weight orientation), so
 converting ``repro`` weights is a copy. ``repro.sharding.act_hints``'s
-``hint_residual`` is a sharding constraint that is a no-op on one device
-and has no counterpart here.
+``hint_residual`` is a sharding constraint for XLA's partitioner; its
+counterpart, ``repro_torch.sharding.act_hints``, tells the few model
+functions that depend on the rest of a split batch or sequence (the MoE
+routing, a sequence-split prefill) what this rank's part is.
 """
 from __future__ import annotations
 
@@ -47,6 +49,11 @@ def fetch_top(params: dict, fetch) -> dict:
     top = fetch({k: v for k, v in params.items()
                  if not isinstance(v, dict)})
     return {**params, **top}
+
+
+def fetched(p, fetch):
+    """``fetch(p)`` for one layer's weights, or ``p`` without a fetch."""
+    return p if fetch is None else fetch(p)
 
 
 def run_layer(fn, p: dict, *args, remat: bool = False, fetch=None):

@@ -17,6 +17,8 @@ against the cross cache as a ``KVCache(cross_k, cross_v, src_len)``.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.models import attention as attn
@@ -242,12 +244,16 @@ def init_cache(cfg, batch_size: int, max_len: int, src_len: int, *,
 
 
 @torch.no_grad()
-def prefill(cfg, params, src_embeds, bos_token, cache):
+def prefill(cfg, params, src_embeds, bos_token, cache, *, fetch=None):
     """Encode the source, write every decoder layer's cross K/V into the
     (fresh) cache in place, then run the BOS token (B, 1) -> (logits
     (B, V), cache). The source may be shorter than the cache's cross
-    capacity: ``src_len`` masks the rest."""
-    memory = encode(cfg, params, src_embeds)
+    capacity: ``src_len`` masks the rest. ``fetch`` maps each layer's
+    weights (and the top-level ones) before use; a heads-laid sharded
+    self cache (``attention.ShardedKVCache``) takes the cross cache's
+    heads as its own."""
+    params = common.fetch_top(params, fetch)
+    memory = encode(cfg, params, src_embeds, fetch=fetch)
     hd = _hd(cfg)
     b, sl, _ = memory.shape
     cap = cache["cross_k"].shape[2]
@@ -257,26 +263,35 @@ def prefill(cfg, params, src_embeds, bos_token, cache):
     _, n_dec = n_enc_dec(cfg)
     for i in range(n_dec):
         p = common.tree_index(params["dec"], i)["cross"]
-        cache["cross_k"][i, :, :sl] = (memory @ p["wk"]).reshape(
-            b, sl, cfg.n_kv_heads, hd)
-        cache["cross_v"][i, :, :sl] = (memory @ p["wv"]).reshape(
-            b, sl, cfg.n_kv_heads, hd)
+        if fetch is not None:
+            p = fetch({"wk": p["wk"], "wv": p["wv"]}, ("cross",))
+        for name in ("k", "v"):
+            kv = (memory @ p["w" + name]).reshape(b, sl, cfg.n_kv_heads, hd)
+            cache["cross_" + name][i, :, :sl] = attn.local_heads(
+                cache["self"], kv)
     cache["src_len"].fill_(sl)
-    return decode_step(cfg, params, bos_token, cache)
+    return _decode(cfg, params, bos_token, cache, fetch)
 
 
 @torch.no_grad()
-def decode_step(cfg, params, token, cache):
+def decode_step(cfg, params, token, cache, *, fetch=None):
     """One decoder token (B, 1) -> (logits (B, V), cache): the self
     cache advanced in place, the cross cache read. RoPE positions come
-    from the per-slot self-cache lengths."""
+    from the per-slot self-cache lengths. ``fetch``: see ``prefill``."""
+    return _decode(cfg, common.fetch_top(params, fetch), token, cache, fetch)
+
+
+def _decode(cfg, params, token, cache, fetch):
+    """``decode_step`` with the top-level weights already fetched. The
+    cross cache is read as the self cache's kind (its layout on a
+    sharded cache) over (cross_k, cross_v, src_len)."""
     x = common.embedding_lookup(params["embed"], token)
     b = x.shape[0]
     hd = _hd(cfg)
     pos = cache["self"].length[0][:, None].clone()
     _, n_dec = n_enc_dec(cfg)
     for i in range(n_dec):
-        p = common.tree_index(params["dec"], i)
+        p = common.fetched(common.tree_index(params["dec"], i), fetch)
         ps, pc = p["self"], p["cross"]
         h = common.rms_norm(x, p["ln_self"], cfg.norm_eps)
         q = (h @ ps["wq"]).reshape(b, 1, cfg.n_heads, hd)
@@ -290,8 +305,9 @@ def decode_step(cfg, params, token, cache):
         x = x + o.reshape(b, 1, -1) @ ps["wo"]
         h = common.rms_norm(x, p["ln_cross"], cfg.norm_eps)
         q = (h @ pc["wq"]).reshape(b, 1, cfg.n_heads, hd)
-        cross = attn.KVCache(cache["cross_k"][i], cache["cross_v"][i],
-                             cache["src_len"])
+        cross = dataclasses.replace(sc, k=cache["cross_k"][i],
+                                    v=cache["cross_v"][i],
+                                    length=cache["src_len"])
         o = attn.decode_attention(q, cross)
         x = x + o.reshape(b, 1, -1) @ pc["wo"]
         x = x + _mlp(cfg, p, x)

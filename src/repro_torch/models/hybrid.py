@@ -239,13 +239,13 @@ def init_cache(cfg, batch_size: int, max_len: int, *, device="cuda") -> dict:
 
 
 @torch.no_grad()
-def prefill(cfg, params, tokens, cache, *, prompt_len=None):
+def prefill(cfg, params, tokens, cache, *, prompt_len=None, fetch=None):
     """Run the (right-padded) prompt, fill the (fresh) ``cache`` in
     place -> (last-token logits (B, V), cache): every layer's SSM state
     and conv tails, the shared block's K/V with ``length = prompt_len``
     (or the width), logits gathered at each slot's ``prompt_len - 1``."""
     logits, (states, kvs) = forward(cfg, params, tokens, collect_state=True,
-                                    prompt_len=prompt_len)
+                                    prompt_len=prompt_len, fetch=fetch)
     for big, new in zip(cache["ssm"], zip(*states)):
         big.copy_(torch.stack(new))
     for g, (k, v) in enumerate(kvs):
@@ -261,24 +261,27 @@ def prefill(cfg, params, tokens, cache, *, prompt_len=None):
 
 
 @torch.no_grad()
-def decode_step(cfg, params, token, cache):
+def decode_step(cfg, params, token, cache, *, fetch=None):
     """One decode step. token: (B, 1) -> (logits (B, V), cache), the
     cache advanced in place: each layer's recurrent step, and after
     every ``attn_every`` layers the shared block against its cache.
-    RoPE positions come from the per-slot cache lengths."""
+    RoPE positions come from the per-slot cache lengths. ``fetch`` maps
+    each layer's weights (and the top-level ones) before use."""
+    params = common.fetch_top(params, fetch)
     x = common.embedding_lookup(params["embed"], token)
     scfg = ssm_cfg(cfg)
     ae = cfg.attn_every
     positions = cache["kv"].length[0][:, None].clone() if ae else None
     for i in range(cfg.n_layers):
-        p = layer_params(params, i)
+        p = common.fetched(layer_params(params, i), fetch)
         h = common.rms_norm(x, p["ln"], cfg.norm_eps)
         out, _ = ssm.decode_mamba2(p["mamba"], h, scfg,
                                    cache["ssm"].layer(i))
         x = x + out
         if ae and (i + 1) % ae == 0:
             g = (i + 1) // ae - 1
-            x, _ = _shared_attn_apply(cfg, params["shared"], x, g,
+            x, _ = _shared_attn_apply(cfg, common.fetched(params["shared"],
+                                                          fetch), x, g,
                                       positions=positions,
                                       layer_cache=cache["kv"].layer(g))
     x = common.rms_norm(x, params["ln_f"], cfg.norm_eps)

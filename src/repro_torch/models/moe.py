@@ -24,13 +24,20 @@ zero row) and adds them in fp32 in its top-k order, highest gate first,
 then casts to the activations' dtype: no atomics, the same bits every
 run. Sums in another order agree with the reference within rounding
 (``tests/test_torch_moe.py`` holds them with ``allclose``).
+
+Capacity, the top-C choice and ``lb_loss`` depend on every token of a
+block, so a batch split over ranks (the FSDP train step) routes over the
+gathered scores of the whole batch (``_moe_split``), as the reference's
+one SPMD program does.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.models import common
+from repro_torch.sharding import act_hints
 
 TOKEN_BLOCK = 65536
 
@@ -92,10 +99,17 @@ def apply_moe(p: dict, x: torch.Tensor, *, top_k: int,
     block, ``lb_loss`` and ``dropped_frac`` are the blocks' means).
     ``full_capacity``: every token is kept (capacity = all tokens). The
     serving paths set it, so a slot's output never depends on what the
-    other slots routed."""
+    other slots routed. Under an ``act_hints.BatchSplit`` (a worker's
+    batch split over ranks, training) ``x`` is this rank's rows and the
+    routing is the whole batch's (``_moe_split``)."""
     bsz, seq, d = x.shape
     t = bsz * seq
     xf = x.reshape(t, d)
+    split = None if full_capacity else act_hints.batch_split()
+    if split is not None and split.size > 1:
+        out, aux = _moe_split(p, xf, split, top_k=top_k,
+                              capacity_factor=capacity_factor)
+        return out.reshape(bsz, seq, d), aux
     if t > TOKEN_BLOCK and t % TOKEN_BLOCK == 0:
         outs, lbs, drops = [], [], []
         for xb in xf.split(TOKEN_BLOCK):
@@ -114,27 +128,48 @@ def apply_moe(p: dict, x: torch.Tensor, *, top_k: int,
     return out.reshape(bsz, seq, d), aux
 
 
-def _moe_block(p: dict, xf: torch.Tensor, *, top_k: int,
-               capacity_factor: float, full_capacity: bool):
-    """One token block: (T, d) -> (T, d), aux."""
-    t, d = xf.shape
-    n_experts = p["router"].shape[1]
-    dev = xf.device
-
-    probs = torch.softmax((xf @ p["router"]).float(), dim=-1)   # (T, E)
+def _route(probs: torch.Tensor, top_k: int):
+    """fp32 router probabilities (T, E) -> the top-k gates renormalised
+    to sum to one, their experts (T, k), and each (token, expert)'s
+    score: its gate if selected, else 0 (T, E)."""
     gate_vals, gate_idx = torch.topk(probs, top_k, dim=-1)       # (T, k)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
-    # score of each (token, expert): its gate if selected, else 0
-    sel = torch.zeros((t, n_experts), dtype=torch.float32,
-                      device=dev).scatter(1, gate_idx, gate_vals)
+    sel = torch.zeros(probs.shape, dtype=torch.float32,
+                      device=probs.device).scatter(1, gate_idx, gate_vals)
+    return gate_idx, sel
 
-    # serving (full_capacity) and tiny blocks keep every token; else each
-    # expert takes min(t, max(1, int(cf * k * t / E))) of them
-    cap = t if full_capacity or t <= 64 else min(t, max(1, int(
-        capacity_factor * top_k * t / n_experts)))
-    top_scores, top_tokens = torch.topk(sel.T, cap, dim=-1)      # (E, C)
+
+def _capacity(t: int, n_experts: int, top_k: int, capacity_factor: float,
+              full_capacity: bool) -> int:
+    """Tokens each expert takes from a block of ``t``: serving
+    (full_capacity) and tiny blocks keep every token; else
+    min(t, max(1, int(cf * k * t / E)))."""
+    if full_capacity or t <= 64:
+        return t
+    return min(t, max(1, int(capacity_factor * top_k * t / n_experts)))
+
+
+def _balance(probs, sel, keep, top_k: int) -> dict:
+    """Load-balance auxiliaries of one block (Switch-style): probs and
+    sel (T, E), keep the routes the experts took."""
+    n_experts = probs.shape[1]
+    me = probs.mean(0)                                           # (E,)
+    ce = (sel > 0).float().mean(0) * n_experts / top_k
+    return {"lb_loss": n_experts * (me * ce).sum(),
+            "dropped_frac": 1.0 - keep.sum() / (probs.shape[0] * top_k)}
+
+
+def _experts(p: dict, xf: torch.Tensor, gate_idx: torch.Tensor,
+             top_scores: torch.Tensor, top_tokens: torch.Tensor):
+    """Run the experts on their token lists and combine: xf (T, d),
+    gate_idx (T, k), top_scores / top_tokens (E, C) each expert's tokens
+    and their gates (0: not taken) -> (T, d) in xf's dtype, shared
+    experts included."""
+    t, d = xf.shape
+    n_experts, cap = top_tokens.shape
+    dev = xf.device
+    top_k = gate_idx.shape[1]
     keep = top_scores > 0.0
-
     xe = xf[top_tokens.reshape(-1)].reshape(n_experts, cap, d)
     ex = p["experts"]
     ye = torch.matmul(F.silu(torch.matmul(xe, ex["gate"]))
@@ -162,10 +197,68 @@ def _moe_block(p: dict, xf: torch.Tensor, *, top_k: int,
         sh = p["shared"]
         out = out + common.swiglu(xf, sh["gate"], sh["up"],
                                   sh["down"]).to(out.dtype)
+    return out.to(xf.dtype)
 
-    # load-balance auxiliaries (Switch-style)
-    me = probs.mean(0)                                           # (E,)
-    ce = (sel > 0).float().mean(0) * n_experts / top_k
-    aux = {"lb_loss": n_experts * (me * ce).sum(),
-           "dropped_frac": 1.0 - keep.sum() / (t * top_k)}
-    return out.to(xf.dtype), aux
+
+def _moe_block(p: dict, xf: torch.Tensor, *, top_k: int,
+               capacity_factor: float, full_capacity: bool):
+    """One token block: (T, d) -> (T, d), aux."""
+    t = xf.shape[0]
+    n_experts = p["router"].shape[1]
+    probs = torch.softmax((xf @ p["router"]).float(), dim=-1)   # (T, E)
+    gate_idx, sel = _route(probs, top_k)
+    cap = _capacity(t, n_experts, top_k, capacity_factor, full_capacity)
+    top_scores, top_tokens = torch.topk(sel.T, cap, dim=-1)      # (E, C)
+    out = _experts(p, xf, gate_idx, top_scores, top_tokens)
+    return out, _balance(probs, sel, top_scores > 0.0, top_k)
+
+
+def _moe_split(p: dict, xf: torch.Tensor, split, *, top_k: int,
+               capacity_factor: float):
+    """``apply_moe`` of this rank's tokens (T_local, d) when the batch is
+    split over a group (``act_hints.BatchSplit``): routing as over the
+    whole batch. The fp32 router probabilities are gathered in row
+    order, and the whole batch's blocks (``TOKEN_BLOCK``), each
+    expert's top-C and the auxiliaries are taken over them, as one
+    device would; then the experts run on this rank's tokens that they
+    took (the longest expert's list of them). The gather's
+    backward sums the ranks' gradients of the auxiliaries, so a step
+    that divides the summed gradient by its rank count counts
+    ``lb_loss`` once."""
+    t = xf.shape[0]
+    n_experts = p["router"].shape[1]
+    probs = torch.softmax((xf @ p["router"]).float(), dim=-1)
+    gate_idx, sel = _route(probs, top_k)
+    probs_all = split.gather(probs)                              # (T, E)
+    t_all = probs_all.shape[0]
+    nb = (t_all // TOKEN_BLOCK if t_all > TOKEN_BLOCK
+          and t_all % TOKEN_BLOCK == 0 else 1)
+    tb = t_all // nb
+    cap = _capacity(tb, n_experts, top_k, capacity_factor, False)
+    keep = torch.zeros((t_all, n_experts), dtype=torch.bool,
+                       device=xf.device)
+    lbs, drops = [], []
+    for i in range(nb):
+        pb = probs_all[i * tb:(i + 1) * tb]
+        _, sel_b = _route(pb.detach(), top_k)
+        top_scores, top_tokens = torch.topk(sel_b.T, cap, dim=-1)
+        taken = top_scores > 0.0
+        keep[i * tb:(i + 1) * tb].scatter_(
+            0, top_tokens.T, taken.T)
+        aux = _balance(pb, sel_b, taken, top_k)
+        lbs.append(aux["lb_loss"])
+        drops.append(aux["dropped_frac"])
+    mine = keep[split.index * t:(split.index + 1) * t]           # (T_l, E)
+    scores = sel * mine
+    # an expert's list is as long as the longest list of this rank's
+    # kept tokens (one host sync). On fake tensors (the dry run) it is
+    # the rank's share of the capacity, C x blocks x T_local / T, which
+    # is what the reference's one program costs a rank
+    if isinstance(mine, FakeTensor):
+        slots = min(t, max(1, -(-cap * nb * t // t_all)))
+    else:
+        slots = max(1, int(mine.sum(0).max()))
+    top_scores, top_tokens = torch.topk(scores.T, slots, dim=-1)
+    out = _experts(p, xf, gate_idx, top_scores, top_tokens)
+    return out, {"lb_loss": torch.stack(lbs).sum() / nb,
+                 "dropped_frac": torch.stack(drops).mean()}

@@ -13,8 +13,11 @@ VLM, the SSM and hybrid families and the encoder-decoder):
   * ``input_specs(shape) -> batch of meta tensors``: the reference's
     input shapes and dtypes of a shape cell (the dry run)
   * ``init_cache(batch_size, shape) -> cache``
-  * ``prefill(params, batch, cache) -> (logits, cache)``
-  * ``decode(params, token, cache) -> (logits, cache)``
+  * ``prefill(params, batch, cache, fetch=None) -> (logits, cache)``
+  * ``decode(params, token, cache, fetch=None) -> (logits, cache)``
+    (``fetch`` maps each layer's weights before use, as the loss's)
+  * ``cache_pspecs(cache_shapes, plan, mesh_axes)``: the layout of
+    every leaf of a cache tree (``sharding.partition.cache_pspecs``)
   * ``prefill_extend(params, batch, cache) -> (logits, cache)``: one
     chunked-prefill segment (batch keys ``tokens``, ``start``,
     ``seg_len``); None for sliding-window models, for the SSM and
@@ -57,6 +60,15 @@ class ModelDef:
     input_specs: Callable[[ShapeConfig], dict]
     prefill_extend: Callable[..., tuple[torch.Tensor, Any]] | None = None
     logits: Callable[..., torch.Tensor] | None = None
+
+    def cache_pspecs(self, cache_shapes, plan, mesh_axes):
+        """Spec tree of a cache tree (path-aware: KV caches shard
+        batch and heads, or the sequence when the heads do not divide
+        'model'; SSM states batch and heads, conv rings batch and
+        channels; lengths replicate), the reference's rules
+        (``partition.cache_leaf_pspec``)."""
+        from repro_torch.sharding import partition
+        return partition.cache_pspecs(cache_shapes, plan, mesh_axes)
 
 
 def _meta(dtype, *shape) -> torch.Tensor:
@@ -109,13 +121,15 @@ def _lm_def(cfg: ArchConfig, device: torch.device) -> ModelDef:
         return transformer.init_cache(cfg, batch_size, shape.seq_len,
                                       device=device)
 
-    def prefill(params, batch, cache):
+    def prefill(params, batch, cache, fetch=None):
         return transformer.prefill(cfg, params, batch["tokens"], cache,
                                    prompt_len=batch.get("prompt_len"),
-                                   frontend=batch.get("frontend"))
+                                   frontend=batch.get("frontend"),
+                                   fetch=fetch)
 
-    def decode(params, token, cache):
-        return transformer.decode_step(cfg, params, token, cache)
+    def decode(params, token, cache, fetch=None):
+        return transformer.decode_step(cfg, params, token, cache,
+                                       fetch=fetch)
 
     def prefill_extend(params, batch, cache):
         return transformer.prefill_extend(
@@ -152,12 +166,12 @@ def _encdec_def(cfg: ArchConfig, device: torch.device) -> ModelDef:
                                  min(ENCDEC_SELF_CACHE, shape.seq_len), src,
                                  device=device)
 
-    def prefill(params, batch, cache):
+    def prefill(params, batch, cache, fetch=None):
         return encdec.prefill(cfg, params, batch["src_embeds"], batch["bos"],
-                              cache)
+                              cache, fetch=fetch)
 
-    def decode(params, token, cache):
-        return encdec.decode_step(cfg, params, token, cache)
+    def decode(params, token, cache, fetch=None):
+        return encdec.decode_step(cfg, params, token, cache, fetch=fetch)
 
     return ModelDef(cfg, device, init, loss, init_cache, prefill, decode,
                     functools.partial(encdec.encdec_axes, cfg),
@@ -180,12 +194,13 @@ def _hybrid_def(cfg: ArchConfig, device: torch.device) -> ModelDef:
         return hybrid.init_cache(cfg, batch_size, shape.seq_len,
                                  device=device)
 
-    def prefill(params, batch, cache):
+    def prefill(params, batch, cache, fetch=None):
         return hybrid.prefill(cfg, params, batch["tokens"], cache,
-                              prompt_len=batch.get("prompt_len"))
+                              prompt_len=batch.get("prompt_len"),
+                              fetch=fetch)
 
-    def decode(params, token, cache):
-        return hybrid.decode_step(cfg, params, token, cache)
+    def decode(params, token, cache, fetch=None):
+        return hybrid.decode_step(cfg, params, token, cache, fetch=fetch)
 
     def logits(params, tokens):
         return hybrid.forward(cfg, params, tokens)[0]

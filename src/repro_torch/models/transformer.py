@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import common, moe
+from repro_torch.sharding import act_hints
 
 
 def _head_dim(cfg) -> int:
@@ -157,9 +158,14 @@ def _attn_block(cfg, p, x, *, positions, layer_cache=None, rolling=False):
     hd = _head_dim(cfg)
     b, s, _ = x.shape
     q, k, v = _qkv(cfg, p, x, positions)
+    split = act_hints.seq_split()
     if layer_cache is not None and s == 1:           # decode
         attn.cache_update(layer_cache, k, v, rolling=rolling)
         o = attn.decode_attention(q, layer_cache, window=cfg.sliding_window)
+    elif split is not None:          # a prefill's positions [lo, hi)
+        k, v = split.gather_seq(k), split.gather_seq(v)
+        o = attn.attention(q, k, v, causal=True, window=cfg.sliding_window,
+                           q_offset=split.lo, block_q=cfg.block_q)
     else:                                            # prefill
         o = attn.attention(q, k, v, causal=True, window=cfg.sliding_window,
                            block_q=cfg.block_q)
@@ -360,7 +366,12 @@ def _stage_caches(cache) -> list:
 
 
 def _prefill_write(cfg, c: attn.KVCache, k, v, prompt_len) -> None:
-    """Write one layer's prompt K/V into its (fresh) cache slice."""
+    """Write one layer's prompt K/V into its (fresh) cache slice (a
+    ``ShardedKVCache``: its block of it)."""
+    if isinstance(c, attn.ShardedKVCache):
+        c.write(lambda cc, kk, vv: _prefill_write(cfg, cc, kk, vv,
+                                                  prompt_len), k, v)
+        return
     b, s = k.shape[:2]
     s_max = c.k.shape[1]
     if cfg.sliding_window is not None and (prompt_len is not None
@@ -388,7 +399,7 @@ def _prefill_write(cfg, c: attn.KVCache, k, v, prompt_len) -> None:
 
 @torch.no_grad()
 def stage_prefill(cfg, params, inp, cache, *, first: bool, last: bool,
-                  prompt_len=None, frontend=None):
+                  prompt_len=None, frontend=None, fetch=None):
     """Prefill one stage's layers over the full (right-padded) prompt,
     filling its (fresh: every length 0) ``cache`` in place.
 
@@ -402,7 +413,15 @@ def stage_prefill(cfg, params, inp, cache, *, first: bool, last: bool,
     prompts to power-of-two buckets without changing outputs.
     ``frontend``: optional (B, F, d_model) embeddings prepended to the
     tokens' on the first stage (a VLM's image patches); positions and
-    ``prompt_len`` then count them."""
+    ``prompt_len`` then count them. ``fetch`` maps each layer's weights
+    (and the top-level ones) before use (``common.run_layer``).
+
+    Under an ``act_hints.SeqSplit`` (one stage: the sharded serve step)
+    this rank runs positions [lo, hi) of the residual stream: global
+    positions for RoPE and the causal mask, K/V gathered over the
+    group for attention and the cache, the last prompt token's state
+    from the rank that holds it."""
+    params = common.fetch_top(params, fetch)
     if first:
         x = common.embedding_lookup(params["embed"], inp)
         if frontend is not None:
@@ -411,22 +430,33 @@ def stage_prefill(cfg, params, inp, cache, *, first: bool, last: bool,
         x = inp
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    split = act_hints.seq_split()
+    if split is not None:
+        x, positions = x[:, split.lo:split.hi], positions[:, split.lo:split.hi]
     layers = _stage_layers(cfg, params, cache["scan"].k.shape[0], first)
+
+    def layer(p, x):
+        return _layer(cfg, p, x, positions=positions, serving=True)
     for p, c in zip(layers, _stage_caches(cache), strict=True):
-        x, (k, v), _ = _layer(cfg, p, x, positions=positions, serving=True)
+        x, (k, v), _ = common.run_layer(layer, p, x, fetch=fetch)
         _prefill_write(cfg, c, k, v, prompt_len)
     if not last:
         return x, cache
-    if prompt_len is None:
+    last_pos = (torch.full((b,), s - 1, device=x.device)
+                if prompt_len is None else prompt_len.long() - 1)
+    if split is not None:
+        x_last = split.pick(x, last_pos)
+    elif prompt_len is None:
         x_last = x[:, -1:]
     else:
-        idx = (prompt_len.long() - 1)[:, None, None].expand(b, 1, x.shape[-1])
+        idx = last_pos[:, None, None].expand(b, 1, x.shape[-1])
         x_last = torch.gather(x, 1, idx)
     return _head_logits(cfg, params, x_last), cache
 
 
 @torch.no_grad()
-def stage_decode(cfg, params, inp, cache, *, first: bool, last: bool):
+def stage_decode(cfg, params, inp, cache, *, first: bool, last: bool,
+                 fetch=None):
     """One decode step through one stage's layers, the cache advanced in
     place.
 
@@ -435,26 +465,32 @@ def stage_decode(cfg, params, inp, cache, *, first: bool, last: bool):
     activations. RoPE positions come from the per-slot cache lengths,
     so slots at different depths each get their own phase, and every
     stage derives them from its own cache (a chain's stages advance in
-    lockstep)."""
+    lockstep). ``fetch``: see ``stage_prefill``."""
+    params = common.fetch_top(params, fetch)
     x = common.embedding_lookup(params["embed"], inp) if first else inp
     scan = cache["scan"]
     positions = scan.length[0][:, None].clone()      # (B, 1)
     rolling = cfg.sliding_window is not None
     layers = _stage_layers(cfg, params, scan.k.shape[0], first)
+
+    def layer(p, x, c):
+        return _layer(cfg, p, x, positions=positions, layer_cache=c,
+                      rolling=rolling, serving=True)
     for p, c in zip(layers, _stage_caches(cache), strict=True):
-        x, _, _ = _layer(cfg, p, x, positions=positions, layer_cache=c,
-                         rolling=rolling, serving=True)
+        x, _, _ = common.run_layer(layer, p, x, c, fetch=fetch)
     if not last:
         return x, cache
     return _head_logits(cfg, params, x), cache
 
 
-def prefill(cfg, params, tokens, cache, *, prompt_len=None, frontend=None):
+def prefill(cfg, params, tokens, cache, *, prompt_len=None, frontend=None,
+            fetch=None):
     """Run the (right-padded) prompt, fill ``cache`` in place ->
     (last-token logits (B, V), cache). The one-stage case of
     ``stage_prefill``."""
     return stage_prefill(cfg, params, tokens, cache, first=True, last=True,
-                         prompt_len=prompt_len, frontend=frontend)
+                         prompt_len=prompt_len, frontend=frontend,
+                         fetch=fetch)
 
 
 @torch.no_grad()
@@ -499,7 +535,8 @@ def prefill_extend(cfg, params, tokens, cache, *, start: int, seg_len: int):
     return _head_logits(cfg, params, x[:, seg_len - 1:seg_len]), cache
 
 
-def decode_step(cfg, params, token, cache):
+def decode_step(cfg, params, token, cache, *, fetch=None):
     """One decode step. token: (B, 1) -> (logits (B, V), cache), the
     cache advanced in place. The one-stage case of ``stage_decode``."""
-    return stage_decode(cfg, params, token, cache, first=True, last=True)
+    return stage_decode(cfg, params, token, cache, first=True, last=True,
+                        fetch=fetch)

@@ -18,6 +18,7 @@ shards on the memory-critical parameters).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any
 
@@ -141,6 +142,60 @@ def cache_pspec(shape: tuple, plan: ParallelismPlan,
     while out and out[-1] is None:
         out.pop()
     return tuple(out)
+
+
+def cache_leaf_pspec(name: str, shape: tuple, plan: ParallelismPlan,
+                     mesh_axes: dict[str, int]) -> tuple:
+    """The layout of one cache leaf by its name (the last key of its
+    path) and rank, the reference's ``ModelDef.cache_pspecs`` rule: KV
+    caches (``k``/``v``, ``cross*``) shard batch and heads or, when the
+    heads do not divide 'model', the sequence; SSM states (L, B, H, P,
+    N) batch and heads; conv rings (L, B, K-1, C) batch and channels;
+    lengths and scalars replicate; anything else shards its batch dim."""
+    rank = len(shape)
+    if rank == 0 or name in ("length", "src_len"):
+        return ()
+    if name in ("k", "v") or name.startswith("cross"):
+        if rank == 5:                    # (L, B, S, Hk, dh)
+            return cache_pspec(shape, plan, mesh_axes, batch_dim=1,
+                               heads_dim=3, seq_dim=2)
+        if rank == 4:                    # (B, S, Hk, dh) unstacked
+            return cache_pspec(shape, plan, mesh_axes, batch_dim=0,
+                               heads_dim=2, seq_dim=1)
+    if name == "state" and rank == 5:    # (L, B, H, P, N)
+        return cache_pspec(shape, plan, mesh_axes, batch_dim=1,
+                           heads_dim=2, seq_dim=None)
+    if name.startswith("conv") and rank == 4:    # (L, B, K-1, C)
+        return cache_pspec(shape, plan, mesh_axes, batch_dim=1,
+                           heads_dim=3, seq_dim=None)
+    return cache_pspec(shape, plan, mesh_axes,
+                       batch_dim=1 if rank >= 3 else 0, heads_dim=None,
+                       seq_dim=None)
+
+
+def cache_pspecs(tree: Any, plan: ParallelismPlan,
+                 mesh_axes: dict[str, int], name: str = "") -> Any:
+    """The spec tree of a cache tree (dicts, lists, dataclasses such as
+    ``KVCache``, named tuples such as ``SSMState``; tensors, ``meta``
+    ones included, or None): its structure, each tensor replaced by
+    ``cache_leaf_pspec`` of its name (a dict key or a field name; a
+    list element takes none)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: cache_pspecs(v, plan, mesh_axes, k)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cache_pspecs(v, plan, mesh_axes) for v in tree]
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: cache_pspecs(getattr(tree, f.name), plan, mesh_axes,
+                                 f.name)
+            for f in dataclasses.fields(tree) if f.init})
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(cache_pspecs(v, plan, mesh_axes, f)
+                            for f, v in zip(tree._fields, tree)))
+    return cache_leaf_pspec(name, tuple(tree.shape), plan, mesh_axes)
 
 
 # -- local layout -------------------------------------------------------------

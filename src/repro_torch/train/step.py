@@ -34,7 +34,12 @@ per-slice, so results equal the PER-SLICE simulator.
 
 A changed ring order or geometry re-forms the ranks' peer map
 (``DistSyncBackend.recompiles`` counts the builds, the first included).
-``build_serve_step`` (sharded serving) is not ported yet.
+
+The serve step (``build_serve_step``, below) runs a rank's rows with
+each layer's weights gathered and its block of the cache: kernel 5 at
+the rank's KV heads, or the kernel's block variant on the rank's cells
+merged over 'model', and a prefill split by sequence when the KV heads
+do not divide that axis.
 """
 from __future__ import annotations
 
@@ -179,15 +184,9 @@ def _rank_hop(ctx, op_id: int, i: int) -> None:
 
 
 def local_all_gather(ctx, key: tuple, row: torch.Tensor) -> torch.Tensor:
-    """Concatenate ``row`` over this rank's group ``key`` (fiber order).
-    An NCCL group gathers on the card; a gloo group through host
-    copies."""
-    import torch.distributed as dist
-    group, ranks = ctx.groups[key]
-    src = row.contiguous() if key[1] == "nccl" else row.cpu()
-    parts = [torch.empty_like(src) for _ in ranks]
-    dist.all_gather(parts, src, group=group)
-    return torch.cat(parts).to(row.device)
+    """Concatenate ``row`` over this rank's group ``key`` (fiber order;
+    ``rank_mesh.all_gather_list``)."""
+    return torch.cat(rank_mesh.all_gather_list(row, ctx.groups[key][0]))
 
 
 def _tally(op: _RankOp) -> dict:
@@ -715,6 +714,44 @@ def local_train_state(model, plan, mesh, params=None):
                                     tree_map(torch.clone, zeros)))
 
 
+def _group(mesh, axes: tuple):
+    """The process group over the mesh dims ``axes`` (in mesh order;
+    flattened when more than one: ranks row-major, as a combined spec
+    entry lays a dim)."""
+    return _flat(mesh[axes[0]] if len(axes) == 1 else mesh[axes]).get_group()
+
+
+class _GatherRows(torch.autograd.Function):
+    """Rows of the group's blocks, concatenated in group order. Backward
+    sums the ranks' gradients of the whole and returns this rank's rows
+    (``act_hints.BatchSplit.gather``)."""
+
+    @staticmethod
+    def forward(ctx, t, group, index):
+        ctx.group, ctx.index, ctx.n = group, index, t.shape[0]
+        return torch.cat(rank_mesh.all_gather_list(t, group))
+
+    @staticmethod
+    def backward(ctx, g):
+        g = rank_mesh.all_reduce_sum(g.contiguous(), ctx.group)
+        return g[ctx.index * ctx.n:(ctx.index + 1) * ctx.n], None, None
+
+
+def _batch_split(mesh, entry, coords):
+    """The ``act_hints.BatchSplit`` of a batch laid over spec ``entry``
+    (None when it is not split)."""
+    from repro_torch.sharding import act_hints
+    axes = partition._entry_axes(entry)
+    amap = mesh_axes(mesh)
+    size = math.prod(amap[a] for a in axes)
+    if size == 1:
+        return None
+    group = _group(mesh, axes)
+    index = rank_mesh.axes_index(amap, axes, coords)
+    return act_hints.BatchSplit(
+        index, size, lambda t: _GatherRows.apply(t, group, index))
+
+
 def build_train_step(model, plan, mesh, optimizer: AdamW):
     """Returns (train_step, state_specs): the hybrid DiLoCo-FSDP inner
     step of one rank over ``mesh`` (a ``DeviceMesh`` with the plan's
@@ -734,9 +771,16 @@ def build_train_step(model, plan, mesh, optimizer: AdamW):
     per layer as the plan says); the gradients come back summed over
     the worker's ranks and are divided by their count, so a worker
     takes the mean over its batch shards (ranks that share a slice
-    count it as often as they share it). ``plan.microbatches``
-    accumulates in fp32 (metrics from the last microbatch), taking as
-    many as divide the rank's rows. AdamW runs on the local shards."""
+    count it as often as they share it). A token-choice MoE layer
+    routes over the worker's whole (micro)batch, as the reference's one
+    program does (``act_hints.BatchSplit``, ``models.moe``).
+    ``plan.microbatches`` accumulates in fp32 (metrics from the last
+    microbatch); microbatch i is rows [i B / n, (i + 1) B / n) of the
+    worker's batch, as in the reference, cut over the batch axes. When
+    that cut does not divide (dbrx-132b single-pod: one row a rank), the
+    rank splits its own rows into as many microbatches as divide them.
+    AdamW runs on the local shards."""
+    from repro_torch.sharding import act_hints
     from repro_torch.train.state import TrainState
     amap = mesh_axes(mesh)
     pspecs = param_specs(model, plan, mesh)
@@ -746,28 +790,43 @@ def build_train_step(model, plan, mesh, optimizer: AdamW):
     flat = None if sub is None else _flat(sub)
     fetch = _make_fetch(model, pspecs, sub, flat)
     bspec = partition.batch_pspec(plan)
-    bl_spec = ((dax,) if dax else ()) + (bspec[0] if bspec else None,)
+    entry = bspec[0] if bspec else None
+    n_shards = math.prod(amap[a] for a in partition._entry_axes(entry))
+    split = _batch_split(mesh, entry, _coords(mesh))
+    hint = act_hints.Hint(batch=split) if split is not None else None
     lead = lambda t: partition.with_leading(t, dax)
     state_specs = TrainState(lead(pspecs), AdamWState(
         (dax,) if dax else (), lead(pspecs), lead(pspecs)))
 
-    def cut(v, coords):
-        """This rank's rows of one input: from the whole (stacked)
-        batch, or from its worker's block (leading dim 1)."""
-        if dax and v.shape[0] == 1 < amap[dax]:
-            return partition.local_block(v[0], bl_spec[1:], amap, coords)
-        v = partition.local_block(v, bl_spec, amap, coords)
-        return v[0] if dax else v
+    def worker_rows(v, coords):
+        """The worker's whole batch of one input: from the whole
+        (stacked) batch, or from its worker's block (leading dim 1)."""
+        if not dax:
+            return v
+        return v[0] if v.shape[0] == 1 < amap[dax] else v[coords[dax]]
 
-    def grads_of(params, batch):
+    def microbatches(batch, coords):
+        """This rank's rows of each microbatch, and whether they are the
+        reference's microbatches."""
         rows = next(iter(batch.values())).shape[0]
-        nmb = math.gcd(plan.microbatches, rows)
+        nmb = plan.microbatches
+        cut = lambda v: partition.local_block(v, (entry,), amap, coords)
+        if rows % nmb == 0 and (rows // nmb) % n_shards == 0:
+            mbs = rows // nmb
+            return [{k: cut(v[i * mbs:(i + 1) * mbs])
+                     for k, v in batch.items()} for i in range(nmb)], True
+        local = {k: cut(v) for k, v in batch.items()}
+        rows = rows // n_shards
+        nmb = math.gcd(nmb, rows)
+        return [{k: v[i * rows // nmb:(i + 1) * rows // nmb]
+                 for k, v in local.items()} for i in range(nmb)], False
+
+    def grads_of(params, mbs):
+        nmb = len(mbs)
         req = tree_map(lambda p: p.detach().requires_grad_(), params)
         ws = leaves(req)
         acc, metrics = None, None
-        for mb in range(nmb):
-            lo, hi = mb * rows // nmb, (mb + 1) * rows // nmb
-            b = {k: v[lo:hi] for k, v in batch.items()}
+        for b in mbs:
             loss, metrics = model.loss(req, b, remat=plan.remat,
                                        fetch=fetch)
             gs = torch.autograd.grad(loss, ws, allow_unused=True)
@@ -790,8 +849,12 @@ def build_train_step(model, plan, mesh, optimizer: AdamW):
         params = tree_map(own, state.params)
         opt = AdamWState(own(state.opt.step), tree_map(own, state.opt.m),
                          tree_map(own, state.opt.v))
-        local = {k: cut(v, coords) for k, v in batch.items()}
-        grads, metrics = grads_of(params, local)
+        mbs, aligned = microbatches({k: worker_rows(v, coords)
+                                     for k, v in batch.items()}, coords)
+        # routing over the whole batch holds only for microbatches of
+        # the reference's rows; the fallback routes each rank's own
+        with act_hints.activation_hints(hint if aligned else None):
+            grads, metrics = grads_of(params, mbs)
         paths = [p for p, _ in leaves_with_paths(params)]
         optimizer.update_(from_paths(paths, grads), opt, params)
         keys = sorted(metrics)
@@ -920,3 +983,269 @@ def build_outer_sync(model, plan, mesh, diloco_cfg: dl.DiLoCoConfig,
         flat_spec = (nondax[0] if len(nondax) == 1 else nondax,)
     return sync, dl.OuterState(pspecs, NesterovState(pspecs), (dax,), (),
                                flat_spec)
+
+
+# -- serve --------------------------------------------------------------------
+#
+# The reference jits ``model.prefill`` / ``model.decode`` over the mesh
+# with the parameters laid out by the plan and the cache by
+# ``ModelDef.cache_pspecs`` (XLA's partitioner does the rest). Here each
+# rank runs the one-device model code on its rows with every layer's
+# weights gathered as it runs (forward only), and the cache's layout is
+# carried by its leaves: a KV cache laid over 'model' is a
+# ``ShardedKVCache`` (decode runs kernel 5 at the rank's heads, or its
+# block variant on the rank's cells, and gathers the rest); an SSM state
+# or conv ring laid over 'model' is gathered for the step and its block
+# written back. Collectives go over the ranks' process groups
+# (``rank_mesh.all_gather_list``: a gloo group takes CUDA tensors
+# through the card mailboxes of ranks that share a card, else through
+# host copies).
+
+
+def local_params(model, plan, mesh, params=None):
+    """This rank's block of every parameter under ``plan``: cut from
+    ``params`` (the whole tree), or allocated unfilled (under
+    ``FakeTensorMode`` the dry run's fake blocks)."""
+    amap = mesh_axes(mesh)
+    pspecs = param_specs(model, plan, mesh)
+    if params is not None:
+        return shard_tree(params, pspecs, mesh)
+    return tree_map(lambda spec, s: torch.empty(
+        partition.local_shape(s.shape, spec, amap), dtype=s.dtype,
+        device=model.device), pspecs, model.param_shapes())
+
+
+def _model_gather(mesh, device):
+    """The forward all-gather over this rank's 'model' group (a list in
+    rank order; one element without such an axis). Collective: ranks of
+    one card share ``CardMailboxes``."""
+    amap = mesh_axes(mesh)
+    if amap.get("model", 1) == 1:
+        return lambda t: [t]
+    group = _group(mesh, ("model",))
+    rank_mesh.use_card_mailboxes(group, device)
+    return lambda t: rank_mesh.all_gather_list(t, group)
+
+
+def local_cache(model, plan, mesh, batch_size: int, shape):
+    """This rank's block of a fresh serving cache for ``batch_size``
+    slots at ``shape`` (``ModelDef.init_cache``'s arguments): every
+    leaf laid out by ``model.cache_pspecs``, as zeros. A KV cache laid
+    over 'model' becomes an ``attention.ShardedKVCache`` carrying its
+    layout (kv heads [lo, hi) of n, or cells [off, off + S_blk) of S)
+    and the group's gather; lengths stay whole. Collective (it makes the
+    'model' group's transport): every rank calls it."""
+    from repro_torch.models import attention as attn
+    amap, coords = mesh_axes(mesh), _coords(mesh)
+    meta = model.init_cache(batch_size, shape, device="meta")
+    specs = model.cache_pspecs(meta, plan, amap)
+    gather = _model_gather(mesh, model.device)
+    m = coords.get("model", 0)
+
+    def block(spec, t):
+        return torch.zeros(partition.local_shape(t.shape, spec, amap),
+                           dtype=t.dtype, device=model.device)
+
+    def walk(t, spec):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            return {k: walk(t[k], spec[k]) for k in t}
+        if isinstance(t, list):
+            return [walk(a, b) for a, b in zip(t, spec)]
+        if isinstance(t, attn.KVCache):
+            k, v = block(spec.k, t.k), block(spec.v, t.v)
+            length = block(spec.length, t.length)
+            ks = tuple(spec.k) + (None,) * (t.k.dim() - len(spec.k))
+            if ks[-2] == "model":
+                return attn.ShardedKVCache(
+                    k, v, length, heads=(m * k.shape[-2],
+                                         (m + 1) * k.shape[-2],
+                                         t.k.shape[-2]), all_gather=gather)
+            if ks[-3] == "model":
+                return attn.ShardedKVCache(
+                    k, v, length, seq=(m * k.shape[-3], t.k.shape[-3]),
+                    all_gather=gather)
+            return attn.KVCache(k, v, length)
+        if isinstance(t, tuple):
+            return type(t)(*(walk(a, b) for a, b in zip(t, spec)))
+        return block(spec, t)
+    return walk(meta, specs)
+
+
+def _rows_view(cache, rows: slice, lengths: list):
+    """The cache as the model sees it on a rank's rows: every length
+    (whole on the rank, laid out replicated) cut to ``rows`` as a view,
+    so the model's writes land in the whole; (whole, view) pairs are
+    appended to ``lengths``."""
+    from repro_torch.models import attention as attn
+    if isinstance(cache, dict):
+        out = {k: _rows_view(v, rows, lengths) for k, v in cache.items()}
+        if "src_len" in cache:
+            out["src_len"] = cache["src_len"][rows]
+            lengths.append((cache["src_len"], out["src_len"]))
+        return out
+    if isinstance(cache, list):
+        return [_rows_view(v, rows, lengths) for v in cache]
+    if isinstance(cache, attn.KVCache):
+        view = cache.length[..., rows]
+        lengths.append((cache.length, view))
+        return dataclasses.replace(cache, length=view)
+    return cache
+
+
+def _serve_fetch(model, pspecs, mesh):
+    """The serve step's ``fetch``: each tensor of a layer (or top-level)
+    tree gathered along every dim its spec lays over mesh axes, forward
+    only; replicated tensors pass as they are."""
+    groups = {}
+    table: dict = {}
+    for rel, spec in _layer_layouts(model.axes(), pspecs):
+        if table.setdefault(rel, spec) != spec:
+            raise ValueError(f"parameter path {rel} has two layouts")
+        for entry in spec:
+            axes = partition._entry_axes(entry)
+            if axes and axes not in groups:
+                groups[axes] = None
+    for axes in sorted(groups):      # collective: one order on every rank
+        groups[axes] = _group(mesh, axes)
+        rank_mesh.use_card_mailboxes(groups[axes], model.device)
+
+    def whole(t, spec):
+        for d, entry in enumerate(spec):
+            axes = partition._entry_axes(entry)
+            if axes:
+                t = torch.cat(rank_mesh.all_gather_list(t, groups[axes]),
+                              dim=d)
+        return t
+
+    def fetch(tree, prefix=()):
+        if isinstance(tree, dict):
+            return {k: fetch(v, prefix + (k,)) for k, v in tree.items()}
+        return whole(tree, table[prefix])
+    return fetch
+
+
+def _state_gather(model, mesh):
+    """(gather, write_back) of a hybrid cache's SSM leaves laid over
+    'model' (state by heads, conv rings by channels): ``gather(ssm)``
+    returns the whole-width SSMState of the rank's rows, ``write_back
+    (ssm, whole)`` copies the rank's block of it into ``ssm``."""
+    from repro_torch.models import hybrid
+    gather = _model_gather(mesh, model.device)
+    m = _coords(mesh).get("model", 0)
+
+    def dims(local, b):
+        full = hybrid._dummy_states(model.cfg, b, device="meta")
+        return [next((d for d in range(t.dim())
+                      if t.shape[d] != f.shape[d]), None)
+                for t, f in zip(local, full)]
+
+    def whole(ssm):
+        ds = dims(ssm, ssm.state.shape[1])
+        return type(ssm)(*(t if d is None else torch.cat(gather(t), dim=d)
+                           for t, d in zip(ssm, ds)))
+
+    def write_back(ssm, full):
+        for t, f, d in zip(ssm, full, dims(ssm, ssm.state.shape[1])):
+            if d is not None:
+                t.copy_(f.narrow(d, m * t.shape[d], t.shape[d]))
+    return whole, write_back
+
+
+def build_serve_step(model, plan, mesh, kind: str):
+    """kind in {'prefill', 'decode'}. Returns (fn, param_specs): one
+    rank's serve step over ``mesh`` (a ``DeviceMesh`` with the plan's
+    axis names), the reference's contract.
+
+    ``fn(params, batch, cache)`` (prefill; ``batch`` the whole one:
+    tokens and a VLM's frontend, or an enc-dec's src_embeds and bos) and
+    ``fn(params, token, cache)`` (decode; token (B, 1)) take this rank's
+    block of every parameter (``local_params``, laid out by
+    ``param_specs``) and of the cache (``local_cache``), write the cache
+    in place and return ``(logits (B, V), cache)``, the logits whole on
+    every rank (the reference's ``out_shardings=None``). The rank takes
+    the rows its cache holds (the batch axes, where they divide) and
+    runs the model on them with each layer's weights gathered before
+    use.
+
+    The prefill shards the sequence over 'model' when the KV heads do
+    not divide that axis (the reference's ``act_hints`` SP hint, not for
+    the SSM and hybrid families): each rank runs the residual stream of
+    its positions (``act_hints.SeqSplit``, ``models.transformer``). An
+    enc-dec under that split raises ``ValueError``: its encoder, cross
+    attention and cache under a sequence split are not ported yet
+    (ROADMAP §1, slice 13), so an enc-dec serves with its heads over
+    'model'."""
+    from repro_torch.sharding import act_hints
+    if kind not in ("prefill", "decode"):
+        raise ValueError(f"serve step kind {kind!r}")
+    cfg = model.cfg
+    amap = mesh_axes(mesh)
+    pspecs = param_specs(model, plan, mesh)
+    n_model = amap.get("model", 1)
+    split = (n_model > 1 and cfg.n_kv_heads % n_model != 0
+             and cfg.family not in ("ssm", "hybrid"))
+    if split and cfg.family == "encdec":
+        raise ValueError(
+            f"{cfg.name}: enc-dec with {cfg.n_kv_heads} KV heads on a "
+            f"'model' axis of {n_model} needs a sequence split, not "
+            "ported yet (ROADMAP §1, slice 13)")
+    coords = _coords(mesh)
+    fetch = _serve_fetch(model, pspecs, mesh)
+    gather_m = _model_gather(mesh, model.device)
+    batch_axes = tuple(a for a in plan.batch_axes if amap.get(a, 1) > 1)
+    row_group = _group(mesh, batch_axes) if batch_axes else None
+    if row_group is not None:
+        rank_mesh.use_card_mailboxes(row_group, model.device)
+    state_whole, state_back = (_state_gather(model, mesh)
+                               if cfg.family in ("ssm", "hybrid")
+                               else (None, None))
+
+    def rows_entry(b: int):
+        spec = partition.cache_pspec((b,), plan, amap, batch_dim=0,
+                                     heads_dim=None, seq_dim=None)
+        return spec[0] if spec else None
+
+    def fn(params, inputs, cache):
+        lead = (inputs if kind == "decode"
+                else next(iter(inputs.values())))
+        entry = rows_entry(lead.shape[0])
+        cut = lambda v: partition.local_block(v, (entry,), amap, coords)
+        hint = None
+        if kind == "decode":
+            local = cut(inputs)
+        else:
+            local = {k: cut(v) for k, v in inputs.items()}
+            if split:
+                s = local["tokens"].shape[1] + (
+                    local["frontend"].shape[1] if "frontend" in local else 0)
+                hint = act_hints.Hint(seq=act_hints.SeqSplit(
+                    coords["model"], act_hints.even_bounds(s, n_model),
+                    gather_m))
+        # lengths are whole on every rank (replicated, as the reference
+        # lays them); the model sees its rows' and they are gathered back
+        sharded_rows = entry is not None and row_group is not None
+        n_rows = lead.shape[0] // (row_group.size() if sharded_rows else 1)
+        r0 = (rank_mesh.axes_index(amap, partition._entry_axes(entry),
+                                   coords) * n_rows if sharded_rows else 0)
+        lengths = []
+        mcache = _rows_view(cache, slice(r0, r0 + n_rows), lengths)
+        if state_whole is not None:
+            mcache = dict(mcache, ssm=state_whole(cache["ssm"]))
+        with torch.no_grad(), act_hints.activation_hints(hint):
+            if kind == "decode":
+                logits, _ = model.decode(params, local, mcache, fetch=fetch)
+            else:
+                logits, _ = model.prefill(params, local, mcache, fetch=fetch)
+        if state_back is not None:
+            state_back(cache["ssm"], mcache["ssm"])
+        if sharded_rows:
+            logits = torch.cat(rank_mesh.all_gather_list(logits,
+                                                         row_group))
+            for whole, rows in lengths:
+                whole.copy_(torch.cat(rank_mesh.all_gather_list(
+                    rows.contiguous(), row_group), dim=-1))
+        return logits, cache
+
+    return fn, pspecs

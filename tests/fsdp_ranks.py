@@ -24,8 +24,8 @@ def model_of(ctx, arch: str, n_layers=None):
 
 def train(ctx, arch, plan, params, batch, n_steps, lr, local_backend):
     """``n_steps`` of ``build_train_step`` from ``params`` (the whole
-    tree); returns the losses, this rank's local parameter shapes and
-    its final local parameters (on the host)."""
+    tree); returns the losses, every step's metrics, this rank's local
+    parameter shapes and its final local parameters (on the host)."""
     torch.set_float32_matmul_precision("highest")
     mesh = ctx.device_mesh(plan.diloco_axis, local_backend)
     model = model_of(ctx, arch)
@@ -34,13 +34,37 @@ def train(ctx, arch, plan, params, batch, n_steps, lr, local_backend):
     params = tree_map(lambda t: t.to(ctx.device), params)
     batch = {k: v.to(ctx.device) for k, v in batch.items()}
     state = ts.local_train_state(model, plan, mesh, params)
-    losses = []
+    losses, hist = [], []
     for _ in range(n_steps):
         state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))
-    return {"losses": losses,
+        hist.append({k: float(v) for k, v in metrics.items()})
+    return {"losses": losses, "metrics": hist,
             "shapes": tree_map(lambda t: tuple(t.shape), state.params),
             "params": tree_map(lambda t: t.cpu(), state.params)}
+
+
+class _Recorder:
+    """An optimizer that keeps the gradients it is given (on the host)
+    and leaves the parameters as they are."""
+
+    def update_(self, grads, state, params) -> None:
+        self.grads = tree_map(lambda g: g.float().cpu(), grads)
+
+
+def first_grads(ctx, arch, plan, params, batch, local_backend):
+    """The gradient one ``build_train_step`` step hands its optimizer:
+    this rank's block of its worker's gradient (a leading dim of 1, as
+    the parameters have under a DiLoCo axis)."""
+    torch.set_float32_matmul_precision("highest")
+    mesh = ctx.device_mesh(plan.diloco_axis, local_backend)
+    model = model_of(ctx, arch)
+    rec = _Recorder()
+    step, _ = ts.build_train_step(model, plan, mesh, rec)
+    params = tree_map(lambda t: t.to(ctx.device), params)
+    batch = {k: v.to(ctx.device) for k, v in batch.items()}
+    step(ts.local_train_state(model, plan, mesh, params), batch)
+    return {"grads": tree_map(lambda g: g[None], rec.grads)}
 
 
 def sync_chain(ctx, arch, plan, params, stacked, quant, weights,

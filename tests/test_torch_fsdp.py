@@ -23,8 +23,18 @@ reference's ``tests/test_distributed.py``):
     per-shard sums add in another order);
   * the int8 sharded ring is bitwise the port's simulator on each
     shard's rows, with ``codec_calls(4)`` codec calls a rank;
-  * error feedback with a sharded plan raises.
+  * error feedback with a sharded plan raises;
+  * a token-choice MoE (reduced deepseek-moe-16b, fp32) with its
+    worker's batch split over 'model' routes over the whole batch, as
+    ``repro``'s one program does: losses, ``lb_loss`` and
+    ``dropped_frac`` within 1e-4 of ``repro``'s unsharded per-worker
+    step, with 1 and 2 microbatches (the reference's rows of the
+    worker's batch); one row a rank (no microbatch of the reference's
+    divides over the ranks) updates as the reference, each rank's row
+    one of its microbatches, and reports the ranks' mean.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +45,7 @@ import fsdp_ranks as fr
 from repro.configs import CONFIGS as JCONFIGS
 from repro.core import diloco as jdl
 from repro.models import common as jcommon
+from repro.models import transformer as jtf
 from repro.models.registry import get_model as jget_model
 from repro.optim.adamw import AdamW as JAdamW
 from repro.sharding import partition as jpart
@@ -82,11 +93,11 @@ def _ref_params(arch):
     return params, from_jax_params(jax.tree.map(np.asarray, params), "cpu")
 
 
-def _batch(cfg, lead, seed=1):
+def _batch(cfg, lead, seed=1, seq=32):
     rng = np.random.default_rng(seed)
-    tok = rng.integers(0, cfg.vocab, lead + (33,)).astype(np.int32)
+    tok = rng.integers(0, cfg.vocab, lead + (seq + 1,)).astype(np.int32)
     return {"tokens": tok[..., :-1], "targets": tok[..., 1:],
-            "mask": np.ones(lead + (32,), np.float32)}
+            "mask": np.ones(lead + (seq,), np.float32)}
 
 
 def _torch_batch(b):
@@ -334,3 +345,110 @@ def test_launcher_trains_and_syncs_as_the_simulator(mesh):
     for h in hist:
         assert h["launches"] == dict.fromkeys(rr.CODEC, 0)   # the CPU
         assert np.isfinite(h["loss"])
+
+
+# -- MoE routing over a worker's split batch ----------------------------------
+
+MOE = "deepseek-moe-16b"
+GRAD_TOL = 1e-5
+
+
+def _ref_moe_dropped(jcfg, params, tokens):
+    """``dropped_frac`` of ``repro``'s forward on ``tokens``: the mean
+    over the MoE layers (the port's metric), layer by layer."""
+    x = jcommon.embedding_lookup(params["embed"], tokens)
+    b, s = tokens.shape
+    pos = jnp.broadcast_to(jnp.arange(s)[None], (b, s))
+    for i in range(jcfg.moe.first_dense):
+        x, _, _ = jtf._layer(jcfg, params[f"dense{i}"], x, positions=pos,
+                             is_moe=False)
+    drops = []
+    for l in range(params["layers"]["wq"].shape[0]):
+        p = jax.tree.map(lambda a: a[l], params["layers"])
+        x, _, aux = jtf._layer(jcfg, p, x, positions=pos, is_moe=True)
+        drops.append(aux["dropped_frac"])
+    return jnp.mean(jnp.stack(drops))
+
+
+def _ref_moe_steps(params, batch, n_steps, nmb):
+    """``repro``'s per-worker step (``build_train_step``'s body without a
+    mesh): microbatch i is rows [i B / n, (i + 1) B / n), gradients
+    averaged in fp32, then AdamW. Returns per worker the (n_steps, 2, 3)
+    loss, lb_loss and dropped_frac of the last microbatch (the
+    reference's metrics) and their mean over the microbatches, and the
+    first step's gradient (the microbatches' mean), stacked (K, ...)
+    over the workers."""
+    jcfg = JCONFIGS[MOE].reduced()
+    jm = jget_model(jcfg)
+    opt = JAdamW(lr=LR)
+
+    @jax.jit
+    def grad(p, b):
+        rows = b["tokens"].shape[0] // nmb
+        acc = jax.tree.map(jnp.zeros_like, p)
+        ms = []
+        for i in range(nmb):
+            mb = {k: v[i * rows:(i + 1) * rows] for k, v in b.items()}
+            (_, m), g = jax.value_and_grad(jm.loss, has_aux=True)(p, mb)
+            acc = jax.tree.map(jnp.add, acc, g)
+            ms.append(jnp.stack([m["loss"], m["lb_loss"],
+                                 _ref_moe_dropped(jcfg, p, mb["tokens"])]))
+        g = jax.tree.map(lambda g: g / nmb, acc)
+        return g, jnp.stack([ms[-1], jnp.mean(jnp.stack(ms), 0)])
+
+    @jax.jit
+    def step(p, st, b):
+        g, m = grad(p, b)
+        p, st = opt.update(g, st, p)
+        return p, st, m
+    out, firsts = [], []
+    for w in range(K):
+        p, st, hist = params, opt.init(params), []
+        wb = {k: jnp.asarray(v[w]) for k, v in batch.items()}
+        firsts.append(grad(p, wb)[0])
+        for _ in range(n_steps):
+            p, st, m = step(p, st, wb)
+            hist.append(np.asarray(m))
+        out.append(np.stack(hist))
+    return out, jax.tree.map(lambda *x: np.stack(x), *firsts)
+
+
+@pytest.mark.parametrize("nmb,rows,seq", [(1, 4, 64), (2, 4, 64),
+                                          (2, 2, 96)],
+                         ids=["one_microbatch", "two_microbatches",
+                              "one_row_a_rank"])
+def test_moe_routes_over_the_workers_batch(mesh, nmb, rows, seq):
+    """The MoE repair: a rank's block (128 or 64 tokens) and the
+    worker's (micro)batch route differently (a block of more than 64
+    tokens gives each expert 1.25 k T / E). ``one_row_a_rank``: the
+    reference's 2 microbatches of 1 row (96 tokens) are the 2 ranks'
+    rows, so each rank routes its own and the update is the
+    reference's; the metrics are the mean over the ranks (the reference
+    reports the last microbatch's). The first step's gradient, every
+    rank's block assembled by ``repro``'s specs, is the reference's
+    within GRAD_TOL: ``lb_loss`` reaches it once (``_GatherRows``'s
+    backward sums it over the ranks, the step divides by their count;
+    Adam's normalised update hides a wrong weight on it in the losses,
+    and makes the parameters after a step differ in a few elements by
+    up to the learning rate on a gradient near 0)."""
+    cfg = get_config(MOE).reduced()
+    plan = dataclasses.replace(
+        make_plan(cfg, ShapeConfig("t", "train", seq, K * rows), AMAP),
+        microbatches=nmb)
+    assert plan.diloco_axis == "data" and plan.batch_axes == ("model",)
+    jparams, params = _ref_params(MOE)
+    b = _batch(cfg, (K, rows), seq=seq)
+    res = mesh.call(fr.train, MOE, plan, params, _torch_batch(b), 3, LR,
+                    "gloo")
+    ref, grads = _ref_moe_steps(jparams, b, 3, nmb)
+    aligned = rows // nmb >= AMAP["model"]
+    for r, out in enumerate(res):
+        want = ref[mesh.coords(r)["data"]][:, 0 if aligned else 1]
+        got = np.array([[m["loss"], m["lb_loss"], m["dropped_frac"]]
+                        for m in out["metrics"]])
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+        assert want[:, 2].max() > 0           # the capacity drops tokens
+    first = mesh.call(fr.first_grads, MOE, plan, params, _torch_batch(b),
+                      "gloo")
+    _assert_every_leaf(first, mesh, "grads", grads, _ref_specs(MOE, plan),
+                       GRAD_TOL, GRAD_TOL)

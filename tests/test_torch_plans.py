@@ -2,8 +2,9 @@
 ``ModelDef.axes`` / ``input_specs``, ``analysis.roofline.
 model_flops_for``) against ``repro``'s: every output is discrete, so
 each must be equal, for all 11 configs x 4 shapes x both production axis
-maps. Also the reference's ``tests/test_partition.py`` cases on the
-port's functions, and the DTensor placements of a spec."""
+maps. Also ``ModelDef.cache_pspecs`` for every config x serve shape x
+axis map on ``meta`` caches, the reference's ``tests/test_partition.py``
+cases on the port's functions, and the DTensor placements of a spec."""
 import dataclasses
 
 import jax
@@ -96,6 +97,56 @@ def test_cache_pspec_equals_reference(arch):
                           seq_dim=dims[2])
                 assert partition.cache_pspec(leaf, plan, mesh, **kw) == \
                     tuple(jpart.cache_pspec(leaf, jplan, mesh, **kw))
+
+
+def _port_leaves(tree, path=()):
+    """{path: spec} of the port's cache spec tree (dict keys, list
+    indices, dataclass and named-tuple fields; None holds nothing)."""
+    if tree is None:
+        return {}
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    elif dataclasses.is_dataclass(tree):
+        items = ((f.name, getattr(tree, f.name))
+                 for f in dataclasses.fields(tree))
+    elif hasattr(tree, "_fields"):
+        items = zip(tree._fields, tree)
+    else:
+        return {path: tree}
+    return {p: s for k, v in items for p, s in _port_leaves(
+        v, path + (k,)).items()}
+
+
+def _ref_leaves(tree):
+    """{path: spec} of ``repro``'s cache spec tree, with the port's path
+    keys."""
+    def key(k):
+        for attr in ("key", "name", "idx"):
+            if hasattr(k, attr):
+                return getattr(k, attr)
+    flat, _ = jax.tree_util.tree_flatten_with_path(
+        tree, is_leaf=lambda x: isinstance(x, P))
+    return {tuple(key(k) for k in path): tuple(spec) for path, spec in flat}
+
+
+@pytest.mark.parametrize("mesh", [MESH_S, MESH_M], ids=["single", "multi"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cache_pspecs_equal_reference(arch, mesh):
+    """Every leaf of every serve cell's cache, on ``meta`` caches."""
+    model = get_model(CONFIGS[arch], device="meta")
+    jm = jget_model(JCONFIGS[arch])
+    for name in ("prefill_32k", "decode_32k", "long_500k"):
+        shape, b = SHAPES[name], SHAPES[name].global_batch
+        plan = make_plan(CONFIGS[arch], shape, mesh)
+        jplan = jmake_plan(JCONFIGS[arch], JSHAPES[name], mesh)
+        got = _port_leaves(model.cache_pspecs(
+            model.init_cache(b, shape, device="meta"), plan, mesh))
+        jcache = jax.eval_shape(lambda: jm.init_cache(b, JSHAPES[name]))
+        want = _ref_leaves(jm.cache_pspecs(jcache, jplan, mesh))
+        assert got == want, name
+        assert any(s for s in got.values()), name
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -164,7 +164,9 @@ def test_port_imports_neither_jax_nor_repro(tmp_path):
             "repro_torch.sharding.plans, repro_torch.train.state, "
             "repro_torch.analysis, repro_torch.analysis.op_cost, "
             "repro_torch.analysis.roofline, repro_torch.analysis.report, "
-            "repro_torch.launch.dryrun\n"
+            "repro_torch.launch.dryrun, repro_torch.launch.fsdp, "
+            "repro_torch.launch.shard_serve, "
+            "repro_torch.sharding.act_hints\n"
             + bad + "assert not bad, bad\n\n"
             "def rank_modules(ctx):\n"
             "    " + bad.replace("\n", "\n    ") + "return bad\n\n"
