@@ -230,12 +230,36 @@ Phases, each of which raises on failure (nothing is caught):
    rank's decode-step median and its share in the 'model' collectives
    printed.
 
+17. sequence parallelism in the hybrid DiLoCo-FSDP train step
+   (``build_train_step`` under ``plan.act_seq_axis``, run on the ranks
+   by ``repro_torch.launch.fsdp``): internlm2-1.8b at full width on a (2,
+   1, 2) ("pod", "data", "model") mesh of rank processes on the card,
+   one 4096-token sequence a worker, so ``make_plan``'s multi-pod plan
+   splits each worker's positions over 'model' (asserted); the 'model'
+   groups are gloo and move the weights, K/V and their backwards
+   through the card mailboxes. (a) depth 4, fp32: 2 steps on a batch
+   with a zero span of the mask in each position block, every step's
+   loss and ce within 1e-4 (relative) of the unsharded step on the
+   card (``model.loss`` and AdamW). (b) depth 6, bf16 (phase 15's
+   model): kernels 1-4 held at the SP hop's (1, 189,281,280) row, then
+   H = 4 and 2 int8 outer syncs: every rank's new anchor bitwise the
+   port's ``outer_sync_sim`` on its shard's rows (every worker's block),
+   each rank's codec launches ``codec_calls(2)`` a sync, the workers'
+   mean loss falls, every window's summed peak under 70 GiB; then the
+   step timed (the slowest rank's median of 5 after a warm-up, CUDA
+   events), its gathers clocked by kind ('kv', 'weights') through the
+   mailboxes and once through host copies, beside the dry run's trace
+   of the last position block's rank (``launch.dryrun.run_custom``):
+   FLOPs, bytes, the bound of the 4 ranks on one card, MFU against 989
+   TFLOP/s, the peaks; the parameter plus optimizer bytes must be equal
+   in both.
+
 ``python3 chip_smoke.py --dist-slots N`` builds and runs phase 9 alone
 with N slots (how its slot count was sized), ``--swarm-only`` phase 10
 alone, ``--moe-only`` phase 11 alone, ``--ssm-only`` phase 12 alone,
 ``--encdec-only`` phase 13 alone, ``--rl-only`` phase 14 alone,
-``--fsdp-only`` phase 15 alone, ``--shard-serve-only`` phase 16 alone;
-none prints a result.
+``--fsdp-only`` phase 15 alone, ``--shard-serve-only`` phase 16 alone,
+``--sp-train-only`` phase 17 alone; none prints a result.
 
 The last three lines are the kernels (JSON), the card (name, power
 limit) and the result.
@@ -452,6 +476,27 @@ SHARD_FD_CASES = [
     ("h2o-danube-1.8b ring", 8, 4096, 8, 4, 80,
      [1, 200, 4095, 4096, 4097, 5000, 8191, 12345], 256),
 ]
+# phase 17: sequence parallelism in the hybrid DiLoCo-FSDP train step
+# (``build_train_step`` under ``plan.act_seq_axis``, ``launch.fsdp``):
+# internlm2-1.8b at full width on a (2, 1, 2) ("pod", "data", "model")
+# mesh of rank processes on the one card, one sequence of train_4k's
+# 4096 tokens a worker, so ``make_plan``'s multi-pod plan splits each
+# worker's positions over 'model' (2048 a rank). One card's 'model'
+# groups are gloo: weights, K/V and their backwards go through the card
+# mailboxes (CUDA IPC). (a) fp32 parity at depth 4, the least depth
+# ``make_plan`` shards (631,242,752 parameters against its 6e8
+# threshold: at depth 2, 505,413,632, it replicates and splits nothing),
+# 2 inner steps, a mask with a zero span in each position block,
+# against the unsharded step on the card; (b) bf16 at depth 6 (phase
+# 15's model), H = 4, 2 int8 outer syncs, then the step timed (median of
+# ``timed`` after ``warm``), clocked by collective kind, and clocked once
+# with the mailboxes off (host copies through gloo)
+SP_TRAIN = {"arch": "internlm2-1.8b", "mesh": (2, 1, 2), "seq_len": 4096,
+            "parity_layers": 4, "parity_steps": 2, "n_layers": 6,
+            "inner_steps": 4, "outer_steps": 2, "warm": 1, "timed": 5,
+            "clocked": 2, "host_clocked": 1}
+SP_PARITY_TOL = 1e-4             # relative, fp32
+SP_MASK_ZEROS = ((100, 400), (2500, 2600))   # one span in each block
 L2_FLUSH_BYTES = 256 << 20       # > the 50 MB L2: each timed call starts cold
 SPIN_CYCLES = 2_000_000          # ~1 ms at the H100's 1.98 GHz boost clock
 LEAD_SPINS = 4                   # spin kernels opening a profiled window
@@ -4822,6 +4867,336 @@ def shard_serve_phase() -> dict:
     return out
 
 
+# -- phase 17: sequence parallelism in the train step ------------------------
+
+
+def sp_config(n_layers: int, inner_steps: int, dtype=None):
+    from repro_torch.launch.fsdp import FSDPConfig
+    s = SP_TRAIN
+    return FSDPConfig(s["arch"], n_layers=n_layers, seq_len=s["seq_len"],
+                      batch_per_worker=1, inner_steps=inner_steps,
+                      dtype=dtype)
+
+
+def sp_check_plan(info) -> None:
+    plan = info["plan"]
+    if plan["act_seq_axis"] != "model" or plan["diloco_axis"] != "pod":
+        raise AssertionError(f"sp: make_plan gave {plan}, want DiLoCo over "
+                             f"'pod' and act_seq_axis 'model'")
+
+
+def sp_parity(mesh) -> dict:
+    """Phase 17 (a): the unsharded step on the card first (``model.loss``
+    with remat, AdamW; its memory freed), then the ranks' SP steps on
+    the same stacked batch; every step's loss and ce within
+    ``SP_PARITY_TOL`` of it, relative."""
+    from repro_torch.core.sync_engine import (from_paths, leaves,
+                                              leaves_with_paths, tree_map)
+    from repro_torch.launch import fsdp
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.adamw import AdamW
+    s = SP_TRAIN
+    k, n = s["mesh"][0], s["parity_steps"]
+    fc = sp_config(s["parity_layers"], n, "float32")
+    cfg = fsdp.model_config(fc)
+    gen = torch.Generator().manual_seed(17)
+    tok = torch.randint(0, cfg.vocab, (k, 1, s["seq_len"] + 1),
+                        generator=gen, dtype=torch.int32)
+    mask = torch.ones((k, 1, s["seq_len"]))
+    for lo, hi in SP_MASK_ZEROS:
+        mask[..., lo:hi] = 0.0
+    batch = {"tokens": tok[..., :-1].contiguous().cuda(),
+             "targets": tok[..., 1:].contiguous().cuda(),
+             "mask": mask.cuda()}
+    prec = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    model = get_model(cfg, "cuda")
+    want = []
+    t0 = time.perf_counter()
+    for w in range(k):
+        params = model.init(fsdp.SEED)
+        opt = AdamW(lr=fsdp.INNER_LR)
+        st = opt.init(params)
+        b = {key: v[w] for key, v in batch.items()}
+        steps = []
+        for _ in range(n):
+            req = tree_map(lambda p: p.detach().requires_grad_(), params)
+            loss, m = model.loss(req, b, remat=True)
+            gs = torch.autograd.grad(loss, leaves(req))
+            opt.update_(from_paths([p for p, _ in leaves_with_paths(req)],
+                                   gs), st, params)
+            steps.append({key: float(m[key].detach())
+                          for key in ("loss", "ce")})
+            del req, loss, m, gs
+        want.append(steps)
+        del params, opt, st
+    torch.set_float32_matmul_precision(prec)
+    ref_s = time.perf_counter() - t0
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    info = mesh.call(fsdp.rank_build, fc, 1)[0]
+    sp_check_plan(info)
+    got = mesh.call(fsdp.rank_steps, batch, n)
+    mesh.call(fsdp.rank_drop)
+    ranks_s = time.perf_counter() - t0
+    err = 0.0
+    for r, steps in enumerate(got):
+        w = mesh.coords(r)["pod"]
+        for a, b in zip(steps, want[w]):
+            for key in ("loss", "ce"):
+                e = abs(a[key] - b[key]) / abs(b[key])
+                err = max(err, e)
+                if e > SP_PARITY_TOL:
+                    raise AssertionError(
+                        f"sp parity: rank {r} {key} {a[key]} vs the "
+                        f"unsharded step's {b[key]} (rel {e:.3g})")
+    del batch
+    torch.cuda.empty_cache()
+    log(f"sp parity (a): {s['arch']} depth {s['parity_layers']} fp32, mesh "
+        f"{s['mesh']}, {s['seq_len']} tokens a worker (mask zeros "
+        f"{SP_MASK_ZEROS}), {n} steps: losses {json.dumps(want)}; largest "
+        f"relative loss/ce difference over the ranks {err:.3g} (gate "
+        f"{SP_PARITY_TOL}); unsharded {ref_s:.1f}s, ranks {ranks_s:.1f}s")
+    return {"want": want, "max_rel_err": err}
+
+
+def sp_trace_start():
+    """Phase 17 (b)'s step traced on fake tensors at the last position
+    block's rank (``launch.dryrun.run_custom``): a subprocess on the
+    host (CPU, fake world), started at once."""
+    s = SP_TRAIN
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         s["arch"], "--n-layers", str(s["n_layers"]), "--seq-len",
+         str(s["seq_len"]), "--global-batch", str(s["mesh"][0]),
+         "--mesh-shape", ",".join(map(str, s["mesh"])), "--no-sync"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+
+def sp_trace_result(proc) -> dict:
+    """Wait for ``sp_trace_start``'s subprocess; its JSON."""
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"sp trace exited {proc.returncode}:\n"
+                             f"{out[-2000:]}{err[-2000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def sp_main(mesh, smi: str, trace_proc) -> dict:
+    """Phase 17 (b). The ranks' codec counts are set to 0 just before
+    the main path and read just after."""
+    from repro_torch.core import diloco as dl
+    from repro_torch.core import ring_reduce as rr
+    from repro_torch.core.sync_engine import SyncEngine, from_paths, tree_map
+    from repro_torch.launch import fsdp
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.nesterov import NesterovState
+    from repro_torch.sharding import partition
+    from repro_torch.sharding.plans import make_plan
+    from repro_torch.train import step as ts
+    import numpy as np
+    s = SP_TRAIN
+    k = s["mesh"][0]
+    fc = sp_config(s["n_layers"], s["inner_steps"])
+    cfg = fsdp.model_config(fc)
+    amap = dict(zip(("pod", "data", "model"), s["mesh"]))
+    model = get_model(cfg, "cuda")
+    plan = make_plan(cfg, fsdp.train_shape(fc, k), amap)
+    specs = ts.param_specs(model, plan, amap)
+    worker = [a for a in amap if a != plan.diloco_axis]
+    shards = [dict(zip(worker, (int(i) for i in idx)))
+              for idx in np.ndindex(*(amap[a] for a in worker))]
+    dcfg = dl.DiLoCoConfig(inner_steps=fc.inner_steps, quant=fsdp.QUANT)
+    params0 = model.init(fsdp.SEED)
+    sims, eng = [], None
+    for c in shards:
+        local = tree_map(lambda sp, t: partition.local_block(
+            t, sp, amap, c).clone(), specs, params0)
+        if eng is None:
+            eng = SyncEngine.for_tree(local)
+        st0 = dl.init_outer_state_sim(local, dcfg, k)
+        sims.append({"flats": (st0.anchor_flat.cpu(),
+                               eng.flatten(st0.opt.momentum).cpu()),
+                     "residual": st0.residual, "step": st0.outer_step})
+        del local, st0
+    del params0
+    gc.collect()
+    torch.cuda.empty_cache()
+    hop_n = -(-eng.numel // k)
+    codec = sharded_codec_rows(hop_n)
+    checks, held_log = [], []
+
+    def sim_state(i):
+        a, m = (x.cuda() for x in sims[i]["flats"])
+        f32 = torch.float32
+        return dl.OuterState(eng.unflatten(a, dtype=f32),
+                             NesterovState(eng.unflatten(m, dtype=f32)),
+                             sims[i]["residual"], sims[i]["step"], a)
+
+    def on_sync(t, mesh):
+        held = {"inner": torch.cuda.memory_allocated()}
+        torch.cuda.reset_peak_memory_stats()
+        thetas = torch.empty((k, len(shards), eng.numel),
+                             dtype=cfg.torch_dtype, device="cuda")
+        flat = mesh.call(fsdp.rank_flat_params, thetas)
+        want = torch.empty((len(shards), eng.numel), device="cuda")
+        for i in range(len(shards)):
+            rows = from_paths(eng.paths, [
+                thetas[:, i, o:o + n].view((k,) + shape) for o, n, shape in
+                zip(eng.offsets, eng.sizes, eng.shapes)])
+            st = dl.outer_sync_sim(rows, sim_state(i), dcfg)[1]
+            want[i] = st.anchor_flat
+            sims[i].update(flats=(st.anchor_flat.cpu(),
+                                  eng.flatten(st.opt.momentum).cpu()),
+                           residual=st.residual, step=st.outer_step)
+            del rows, st
+        del thetas
+        gc.collect()
+        torch.cuda.empty_cache()
+        held.update(sim=torch.cuda.max_memory_allocated(),
+                    sync=torch.cuda.memory_allocated())
+        held_log.append((held, [r["peak_bytes"] for r in flat]))
+        res = mesh.call(fsdp.rank_sync, want)
+        del want
+        torch.cuda.empty_cache()
+        if not all(r["anchor_equal"] for r in res):
+            raise AssertionError(f"sp sync {t}: a rank's anchor differs "
+                                 f"from outer_sync_sim's on its shard")
+        for r in res:
+            if r["launches"] != rr.codec_calls(k) or \
+                    r["calls"] != rr.codec_calls(k):
+                raise AssertionError(f"sp sync {t}: a rank launched "
+                                     f"{r['launches']} (calls {r['calls']})"
+                                     f", want codec_calls({k})")
+        checks.append(t)
+        return res
+
+    mesh.call(ts.rank_codec_counts, True)
+    t0 = time.perf_counter()
+    with CardUsedPeak() as used:
+        info, hist = fsdp.run(mesh, fc, s["outer_steps"], on_sync)
+    main_wall = time.perf_counter() - t0
+    ranks = mesh.call(ts.rank_codec_counts)
+    sp_check_plan(info)
+    windows = fsdp_windows(hist, held_log)
+    peak = max(w for step in windows for w in step.values())
+    launches = {n: sum(r["launches"][n] for r in ranks) for n in CODEC}
+    want = {n: s["outer_steps"] * mesh.size * c
+            for n, c in rr.codec_calls(k).items()}
+    if launches != want:
+        raise AssertionError(f"sp: ranks launched {launches}, want {want}")
+    if checks != list(range(s["outer_steps"])):
+        raise AssertionError(f"sp: syncs checked {checks}")
+    curve = [sum(h["losses"][w][i] for w in h["losses"]) / k
+             for h in hist for i in range(s["inner_steps"])]
+    if not all(math.isfinite(x) for x in curve) or curve[-1] >= curve[0]:
+        raise AssertionError(f"sp: the workers' mean loss {curve}")
+    gib = [{n: round(w / 2**30, 2) for n, w in step.items()}
+           for step in windows]
+    log(f"sp main path (b) memory (allocated, GiB; every process's peak in "
+        f"a window, summed): {gib}; card used (sampled) "
+        f"{used.peak / 2**30:.2f} GiB")
+    if peak >= PEAK_LIMIT_BYTES:
+        raise AssertionError(f"sp main path peak {peak / 2**30:.2f} GiB")
+    for h in hist:
+        log(f"sp step {h['outer_step']}: losses {json.dumps(h['losses'])} "
+            f"inner={h['inner_s'] * 1e3:.1f}ms sync={h['sync_s'] * 1e3:.1f}ms"
+            f" launches {json.dumps(h['launches'])}")
+    del sims
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the step timed (CUDA events) once the trace is done (an idle
+    # host), then clocked by collective kind, then once through host
+    # copies
+    trace = sp_trace_result(trace_proc)
+    timed = mesh.call(fsdp.rank_time_step, s["warm"], s["timed"])
+    clocked = mesh.call(fsdp.rank_clock_step, s["clocked"])
+    hosted = mesh.call(fsdp.rank_clock_step, s["host_clocked"], True)
+    mesh.call(fsdp.rank_drop)
+    step_ms = max(sorted(t["ms"])[len(t["ms"]) // 2] for t in timed)
+
+    def shares(recs):
+        out = {}
+        for tag in ("kv", "weights"):
+            out[tag] = [sum(c["by_tag"].get(tag, 0.0) for c in rank)
+                        / sum(c["step_s"] for c in rank) for rank in recs]
+        out["step_s"] = [sum(c["step_s"] for c in rank) / len(rank)
+                         for rank in recs]
+        return out
+    card, host = shares(clocked), shares(hosted)
+    tr = trace["train_step"]
+    if tr["memory"]["param_opt_bytes"] != info["param_opt_bytes"]:
+        raise AssertionError(f"sp: trace param+opt bytes "
+                             f"{tr['memory']['param_opt_bytes']} vs the "
+                             f"card's {info['param_opt_bytes']}")
+    rl = tr["roofline"]
+    mfu = rl["model_flops"] / (step_ms * 1e-3) / PEAK_FLOPS[torch.bfloat16]
+    # one card runs every rank's work: the trace's per-rank bound, times
+    # the ranks
+    bound_ms = rl["step_s"] * 1e3 * mesh.size
+    peaks = [t["peak_bytes"] for t in timed]
+    log(f"sp step (b) [{smi}]: {s['arch']} depth {s['n_layers']} bf16, mesh "
+        f"{s['mesh']}, {s['seq_len'] // amap['model']} positions a rank: "
+        f"median {step_ms:.2f} ms (max over ranks of each rank's median of "
+        f"{s['timed']}: {[round(x, 2) for t in timed for x in t['ms']]}); "
+        f"collective share through the card mailboxes: K/V "
+        f"{[round(x, 4) for x in card['kv']]}, weights "
+        f"{[round(x, 4) for x in card['weights']]} of "
+        f"{[round(x, 3) for x in card['step_s']]} s a clocked step; through "
+        f"host copies (gloo): K/V {[round(x, 4) for x in host['kv']]}, "
+        f"weights {[round(x, 4) for x in host['weights']]} of "
+        f"{[round(x, 3) for x in host['step_s']]} s; trace of the last "
+        f"block's rank {trace['traced_rank']}: flops/rank {rl['flops']:.4g}, "
+        f"hbm bytes/rank {rl['hbm_bytes']:.4g} (unfused upper bound), "
+        f"collective bytes/rank {json.dumps(tr['collectives'])}, bound "
+        f"{bound_ms:.2f} ms for the {mesh.size} ranks on one card "
+        f"({rl['bottleneck']}); MFU = model_flops {rl['model_flops']:.4g} "
+        f"/ measured / 989e12 = {mfu:.4f}; peaks measured "
+        f"{[round(p / 2**30, 2) for p in peaks]} GiB vs predicted "
+        f"{tr['memory']['peak_live_bytes'] / 2**30:.2f} GiB a rank; "
+        f"main path wall {main_wall:.1f}s")
+    return {"launches": launches, "codec": codec, "hop_shape": (1, hop_n),
+            "hist": hist, "windows": windows, "card_used": used.peak,
+            "step_ms": step_ms, "mfu": mfu, "shares": {"card": card,
+                                                       "host": host},
+            "trace": {"flops": rl["flops"], "hbm_bytes": rl["hbm_bytes"],
+                      "bound_ms": bound_ms, "rank": trace["traced_rank"]}}
+
+
+def sp_train_phase(smi: str) -> dict:
+    """Phase 17: (a) the fp32 parity, then (b) the bf16 main path, on
+    one (2, 1, 2) mesh of rank processes."""
+    from repro_torch.launch.mesh import make_mesh
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the trace runs on the host while (a) and (b)'s main path run
+    trace_proc = sp_trace_start()
+    try:
+        with make_mesh(SP_TRAIN["mesh"], ("pod", "data", "model"),
+                       timeout=600.0) as mesh:
+            parity = sp_parity(mesh)
+            out = sp_main(mesh, smi, trace_proc)
+    finally:
+        if trace_proc.poll() is None:
+            trace_proc.kill()
+            trace_proc.wait()
+    out["parity"] = parity
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"sp phase: {out['wall_s']:.1f}s")
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dist-slots", type=int, default=None,
@@ -4849,6 +5224,10 @@ def main(argv=None) -> None:
     ap.add_argument("--shard-serve-only", action="store_true",
                     help="run only phase 16, sharded serving (after the "
                          "build), and print no result")
+    ap.add_argument("--sp-train-only", action="store_true",
+                    help="run only phase 17, sequence parallelism in the "
+                         "train step (after the build), and print no "
+                         "result")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False     # fp32 stays fp32
@@ -4888,6 +5267,10 @@ def main(argv=None) -> None:
     if args.shard_serve_only:
         shard_serve_phase()
         log(f"phase 16 alone passed in {time.perf_counter() - t0:.1f}s")
+        return
+    if args.sp_train_only:
+        sp_train_phase(smi)
+        log(f"phase 17 alone passed in {time.perf_counter() - t0:.1f}s")
         return
     kernels = ([check_flash_decode()] + check_int8_codec()
                + [check_flash_decode_paged()])
@@ -5037,6 +5420,19 @@ def main(argv=None) -> None:
         shard_serve={k: {x: sh[k][x] for x in (
             "decode_median_ms", "collective_share", "summed_peak_bytes",
             "max_rel_logit_err")} for k in ("heads", "seq")})
+    del sh
+    gc.collect()
+    torch.cuda.empty_cache()
+    sp = sp_train_phase(smi)
+    for entry in kernels[1:5]:
+        c = sp["codec"][entry["name"]]
+        entry.update(launches_sp_train=sp["launches"][entry["name"]],
+                     sp_train_hop_shape={"rows": 1, "n": sp["hop_shape"][1],
+                                         "dtype": "float32"},
+                     sp_train_ms=c["ms"], sp_train_plain_ms=c["plain_ms"],
+                     sp_train_bound_ms=c["bound_ms"],
+                     sp_train_library_ms=c["library_ms"],
+                     sp_train_max_abs_err=c["max_abs_err"])
     log(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

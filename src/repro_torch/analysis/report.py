@@ -55,11 +55,10 @@ def roofline_table(mesh: str = "single",
         "|---|---|---|---|---|---|---|---|---|---|---|",
     ]
     for (arch, shape), cell in sorted(cells.items()):
-        for key in ("skipped", "not_ported"):
-            if key in cell:
-                lines.append(
-                    f"| {arch} | {shape} | — | — | — | — | {key} | — | — "
-                    f"| — | ({cell[key]}) |")
+        if "skipped" in cell:
+            lines.append(
+                f"| {arch} | {shape} | — | — | — | — | skipped | — | — "
+                f"| — | ({cell['skipped']}) |")
         for tag in ("train_step", "serve_step", "sync_step"):
             if tag not in cell:
                 continue
@@ -78,15 +77,13 @@ def roofline_table(mesh: str = "single",
 
 def summary(mesh: str, out_dir: pathlib.Path = OUT_DIR) -> str:
     cells = load_cells(mesh, out_dir)
-    count = {k: sum(1 for c in cells.values() if k in c)
-             for k in ("skipped", "not_ported")}
-    done = len(cells) - sum(count.values())
+    skipped = sum(1 for c in cells.values() if "skipped" in c)
     over = [k for k, c in cells.items() if any(
         _peak(c[t]) > HBM_GIB * 2**30
         for t in ("train_step", "serve_step", "sync_step") if t in c)]
-    return (f"{mesh}: {done} traced, {count['skipped']} skipped "
-            f"(documented), {count['not_ported']} not ported, "
-            f"{len(over)} cells over {HBM_GIB} GiB/rank: {over}")
+    return (f"{mesh}: {len(cells) - skipped} traced, {skipped} skipped "
+            f"(documented), {len(over)} cells over {HBM_GIB} GiB/rank: "
+            f"{over}")
 
 
 if __name__ == "__main__":

@@ -27,7 +27,9 @@ stops every rank and leaves no child process.
 
 Inside the ranks, ``all_gather_list`` and ``all_reduce_sum`` (below) are
 the forward collectives of the FSDP and serve steps over a rank's
-groups; ``timed_collectives`` lets a rank driver time them.
+groups, and ``reduce_scatter_rows`` the backward of a gather in the
+sequence-parallel train step; ``timed_collectives`` times them for
+the launchers that run steps on the ranks.
 """
 from __future__ import annotations
 
@@ -392,12 +394,12 @@ class RankMesh:
 
 # -- collectives over a rank's process groups ---------------------------------
 #
-# Forward-only gathers and sums for code that runs inside the ranks (the
-# FSDP step's MoE routing, the serve step). Gloo gathers no CUDA tensor,
-# and NCCL takes one rank a card, so the ranks that share one card and a
-# gloo group move a gather's payload through ``CardMailboxes`` (device
-# buffers opened by CUDA IPC; gloo only orders the copies), and other
-# CUDA tensors on a gloo group go through host copies.
+# Gathers and sums for code that runs inside the ranks (the FSDP step's
+# MoE routing and sequence split, the serve step). Gloo gathers no CUDA
+# tensor, and NCCL takes one rank a card, so the ranks that share one
+# card and a gloo group move a gather's payload through ``CardMailboxes``
+# (device buffers opened by CUDA IPC; gloo only orders the copies), and
+# other CUDA tensors on a gloo group go through host copies.
 
 # bytes of one rank's mailbox: a gather moves its payload in pieces of it
 MAILBOX_BYTES = 256 << 20
@@ -449,6 +451,30 @@ class CardMailboxes:
             dist.barrier(group=self.group)
         return [o.view(t.dtype).view(t.shape) for o in outs]
 
+    def all_to_all(self, rows: torch.Tensor) -> torch.Tensor:
+        """Row ``me`` of every rank's ``rows`` ((n, ...), equal shapes
+        and dtypes), stacked in group order: each rank lays its rows
+        side by side in its mailbox and reads its own slot of every
+        peer's (pieces of ``nbytes / n`` a row)."""
+        import torch.distributed as dist
+        n = len(self.peers)
+        flat = rows.contiguous().view(n, -1).view(torch.uint8)
+        size = flat.shape[1]
+        piece = self.nbytes // n
+        out = torch.empty_like(flat)
+        at = self.me * piece
+        for lo in range(0, size, piece):
+            hi = min(size, lo + piece)
+            self.buf[:n * piece].view(n, piece)[:, :hi - lo].copy_(
+                flat[:, lo:hi])
+            torch.cuda.current_stream(rows.device).synchronize()
+            dist.barrier(group=self.group)
+            for r, peer in enumerate(self.peers):
+                out[r, lo:hi].copy_(peer[at:at + hi - lo])
+            torch.cuda.current_stream(rows.device).synchronize()
+            dist.barrier(group=self.group)
+        return out.view(rows.dtype).view(rows.shape)
+
 
 # group -> its CardMailboxes, or None where its ranks are on several
 # cards (``use_card_mailboxes``)
@@ -479,6 +505,20 @@ def use_card_mailboxes(group, device) -> bool:
     return _MAILBOXES[group] is not None
 
 
+@contextlib.contextmanager
+def host_transport(on: bool = True):
+    """While open (and ``on``), gloo groups move CUDA tensors through
+    host copies even where they have ``CardMailboxes``: the two
+    transports of one card's ranks, compared on one step."""
+    saved = dict(_MAILBOXES) if on else {}
+    for group in saved:
+        _MAILBOXES[group] = None
+    try:
+        yield
+    finally:
+        _MAILBOXES.update(saved)
+
+
 def release_card_mailboxes() -> None:
     """Close this rank's views of its peers' mailboxes, then (after a
     barrier over the world: every rank has closed its views) free its
@@ -497,9 +537,12 @@ def release_card_mailboxes() -> None:
 
 @contextlib.contextmanager
 def timed_collectives():
-    """While open, ``all_gather_list``'s seconds (host copies included)
-    add up in the yielded record's ``"collective_s"``."""
-    rec = {"collective_s": 0.0}
+    """While open, ``all_gather_list``'s, ``reduce_scatter_rows``' and
+    ``all_reduce_sum``'s seconds (host copies included) add up in the yielded record's
+    ``"collective_s"``, and by the calls' ``tag`` in ``"by_tag"``. On
+    the card each call first waits for the device work queued before
+    it, so a call's seconds are its own and the wait for its peers."""
+    rec = {"collective_s": 0.0, "by_tag": {}}
     _CLOCKS.append(rec)
     try:
         yield rec
@@ -507,27 +550,72 @@ def timed_collectives():
         _CLOCKS.remove(rec)
 
 
-def all_gather_list(t: torch.Tensor, group) -> list:
+@contextlib.contextmanager
+def _clocked(t: torch.Tensor, tag: str | None):
+    """Time one collective call into the open ``timed_collectives``."""
+    if not _CLOCKS:
+        yield
+        return
+    if t.is_cuda:
+        torch.cuda.current_stream(t.device).synchronize()
+    t0 = time.perf_counter()
+    yield
+    if t.is_cuda:
+        torch.cuda.current_stream(t.device).synchronize()
+    sec = time.perf_counter() - t0
+    for rec in _CLOCKS:
+        rec["collective_s"] += sec
+        if tag is not None:
+            rec["by_tag"][tag] = rec["by_tag"].get(tag, 0.0) + sec
+
+
+def all_gather_list(t: torch.Tensor, group, tag: str | None = None) -> list:
     """Every rank's ``t`` (equal shapes) over ``group``, in group order,
     forward only. A gloo group takes CUDA tensors through its
     ``CardMailboxes`` when it has them, else through host copies (it
-    gathers none itself); NCCL gathers on the card."""
+    gathers none itself); NCCL gathers on the card. ``tag`` names the
+    call's kind for ``timed_collectives``."""
     import torch.distributed as dist
     n = dist.get_world_size(group)
     if n == 1:
         return [t]
-    t0 = time.perf_counter()
-    if t.is_cuda and _MAILBOXES.get(group) is not None:
-        parts = _MAILBOXES[group].all_gather(t)
-    elif _host_staged(t, group):
-        parts = host_all_gather(t, group)
-    else:
-        src = t.contiguous()
-        parts = [torch.empty_like(src) for _ in range(n)]
-        dist.all_gather(parts, src, group=group)
-    for rec in _CLOCKS:
-        rec["collective_s"] += time.perf_counter() - t0
+    with _clocked(t, tag):
+        if t.is_cuda and _MAILBOXES.get(group) is not None:
+            parts = _MAILBOXES[group].all_gather(t)
+        elif _host_staged(t, group):
+            parts = host_all_gather(t, group)
+        else:
+            src = t.contiguous()
+            parts = [torch.empty_like(src) for _ in range(n)]
+            dist.all_gather(parts, src, group=group)
     return parts
+
+
+def reduce_scatter_rows(rows: torch.Tensor, group,
+                        tag: str | None = None) -> torch.Tensor:
+    """The sum over the ranks of ``group`` of each rank's ``rows[me]``
+    (``rows`` (n, ...): row r goes to rank r): a reduce-scatter. The rows
+    move by an all-to-all (through the group's ``CardMailboxes`` when it
+    has them, else through host copies on a gloo group, else on the
+    card) and are summed in fp32 by one reduction over the ranks, so
+    ranks that receive the same rows hold the same bits."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    if n != rows.shape[0]:
+        raise ValueError(f"{rows.shape[0]} rows for a group of {n}")
+    if n == 1:
+        return rows[0]
+    with _clocked(rows, tag):
+        if rows.is_cuda and _MAILBOXES.get(group) is not None:
+            parts = _MAILBOXES[group].all_to_all(rows)
+        else:
+            staged = _host_staged(rows, group)
+            src = rows.contiguous()
+            src = src.cpu() if staged else src
+            parts = torch.empty_like(src)
+            dist.all_to_all_single(parts, src, group=group)
+            parts = parts.to(rows.device) if staged else parts
+        return parts.float().sum(0).to(rows.dtype)
 
 
 def host_all_gather(t: torch.Tensor, group) -> list:
@@ -540,12 +628,20 @@ def host_all_gather(t: torch.Tensor, group) -> list:
     return [p.to(t.device) for p in parts]
 
 
-def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
-    """The sum of every rank's ``t`` over ``group`` (a new tensor)."""
+def all_reduce_sum(t: torch.Tensor, group,
+                   tag: str | None = None) -> torch.Tensor:
+    """The sum of every rank's ``t`` over ``group`` (a new tensor; the
+    same bits on every rank). A gloo group with ``CardMailboxes`` gathers
+    the ranks' ``t`` through them and sums them in fp32 by one reduction;
+    else a CUDA tensor on a gloo group goes through host copies."""
     import torch.distributed as dist
     if dist.get_world_size(group) == 1:
         return t
-    staged = _host_staged(t, group)
-    out = t.cpu() if staged else t.clone()
-    dist.all_reduce(out, group=group)
-    return out.to(t.device) if staged else out
+    with _clocked(t, tag):
+        if t.is_cuda and _MAILBOXES.get(group) is not None:
+            parts = _MAILBOXES[group].all_gather(t)
+            return torch.stack(parts).float().sum(0).to(t.dtype)
+        staged = _host_staged(t, group)
+        out = t.cpu() if staged else t.clone()
+        dist.all_reduce(out, group=group)
+        return out.to(t.device) if staged else out

@@ -4,13 +4,14 @@ shape x mesh) cell on fake tensors (port of ``repro.launch.dryrun``).
 For each cell:
   * build the production mesh (16x16 single-pod / 2x16x16 multi-pod)
     over an in-process fake world (``launch.mesh.make_production_mesh``:
-    this process is rank 0 of 256 or 512);
-  * derive the plan and every parameter's layout, and allocate rank 0's
-    block of the train state as fake tensors (no memory);
+    this process is one rank of 256 or 512, the traced rank);
+  * derive the plan and every parameter's layout, and allocate the
+    traced rank's block of the train state as fake tensors (no memory);
   * run the train step (forward, backward, AdamW) and the DiLoCo outer
     sync (the int8 ring, plain codec) once each, or for a prefill or
-    decode cell the serve step (``build_serve_step``) on rank 0's block
-    of the parameters and of the cache (``local_cache``), under
+    decode cell the serve step (``build_serve_step``) on the traced
+    rank's block of the parameters and of the cache (``local_cache``),
+    under
     ``analysis.op_cost.OpCounter`` and a live-memory tracker, and write
     FLOPs, HBM bytes (unfused upper bound), wire bytes per collective,
     the roofline on the H100 and the memory per rank to JSON under
@@ -20,11 +21,15 @@ Fake tensors run on the CPU, so the step goes through the plain
 versions of the kernels, as the reference's dry run lowers its ``jnp``
 paths (``quant_impl="jnp"``) and never the Pallas kernels.
 
-Not ported (recorded as ``{"not_ported": ...}``, counted apart from
-failures): train cells whose plan sets ``act_seq_axis`` (sequence
-parallelism in training, every multi-pod train cell but the SSM and
-hybrid ones); they wait for the next slice (ROADMAP §1). Unsupported
-shapes are ``"skipped"``, as in the reference.
+The traced rank is rank 0, except in a train cell whose plan sets
+``act_seq_axis`` (sequence parallelism: every multi-pod train cell but
+the SSM and hybrid ones). There each rank runs its block of positions,
+and attention skips the key ranges its causal mask cannot reach, so
+rank 0 (positions 0 to S / 16) does the least work: the traced rank is
+the one of the last position block (the SP axis's last coordinate, 0
+on every other axis), which paces the step. The cell's JSON records
+it (``traced_rank``). Unsupported shapes are ``"skipped"``, as in the
+reference.
 
 Run a single cell:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mamba2-130m \\
@@ -44,8 +49,6 @@ import time
 
 OUT_DIR = pathlib.Path(__file__).resolve().parents[3] / "experiments" \
     / "dryrun_torch"
-NOT_PORTED_SP = ("sequence parallelism in training (act_seq_axis): "
-                 "ROADMAP §1, slice 13")
 MESH_AXES = {"single": {"data": 16, "model": 16},
              "multi": {"pod": 2, "data": 16, "model": 16}}
 
@@ -111,12 +114,31 @@ def _measure(tag: str, label: str, result: dict, fn, args, tracked,
           flush=True)
 
 
+def traced_rank(plan, mesh_axes: dict) -> tuple[int, dict]:
+    """(rank, coordinates) of the rank a train cell traces: the last
+    position block's under sequence parallelism (the SP axis's last
+    coordinate, 0 on every other), else rank 0."""
+    from repro_torch.core import rank_mesh
+    coords = dict.fromkeys(mesh_axes, 0)
+    if plan.act_seq_axis:
+        coords[plan.act_seq_axis] = mesh_axes[plan.act_seq_axis] - 1
+    return rank_mesh.axes_index(mesh_axes, list(mesh_axes), coords), coords
+
+
+def _plan_record(plan) -> dict:
+    return {"diloco_axis": plan.diloco_axis, "n_workers": plan.n_workers,
+            "batch_axes": plan.batch_axes, "remat": plan.remat,
+            "seq_axis": plan.seq_axis, "act_seq_axis": plan.act_seq_axis,
+            "microbatches": plan.microbatches}
+
+
 def trace(cfg, shape, plan, mesh, *, sync_too: bool = True,
           quant: str = "int8", label: str = "") -> dict:
-    """Rank 0's train step (and outer sync) of ``cfg`` at ``shape`` under
-    ``plan`` on ``mesh`` (a ``DeviceMesh`` over a fake world), traced
-    once each on fake tensors: the plan, the rank count and, per step,
-    the roofline, collectives and memory."""
+    """This process's rank's train step (and outer sync) of ``cfg`` at
+    ``shape`` under ``plan`` on ``mesh`` (a ``DeviceMesh`` over a fake
+    world), traced once each on fake tensors: the plan, the rank count,
+    the traced rank and, per step, the roofline, collectives and
+    memory."""
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
 
@@ -131,11 +153,9 @@ def trace(cfg, shape, plan, mesh, *, sync_too: bool = True,
     amap = step_lib.mesh_axes(mesh)
     model = get_model(cfg, device="cpu")
     dax, k = plan.diloco_axis, plan.n_workers
-    result = {"plan": {"diloco_axis": dax, "n_workers": k,
-                       "batch_axes": plan.batch_axes, "remat": plan.remat,
-                       "seq_axis": plan.seq_axis,
-                       "microbatches": plan.microbatches},
-              "n_chips": n_chips}
+    result = {"plan": _plan_record(plan), "n_chips": n_chips,
+              "traced_rank": {"rank": int(mesh.get_rank()),
+                              "coords": step_lib._coords(mesh)}}
     opt = AdamW(lr=7.5e-5)
     # meshes and groups are made outside fake mode (they hold real
     # rank tensors); only the state and the steps' tensors are fake
@@ -179,10 +199,11 @@ def trace(cfg, shape, plan, mesh, *, sync_too: bool = True,
 
 
 def trace_serve(cfg, shape, plan, mesh, *, label: str = "") -> dict:
-    """Rank 0's serve step of ``cfg`` at ``shape`` (a prefill or decode
-    cell) under ``plan`` on ``mesh`` (a ``DeviceMesh`` over a fake
-    world), traced once on fake tensors: the whole inputs, rank 0's
-    block of the parameters and of a fresh cache. Returns the plan, the
+    """This process's rank's serve step of ``cfg`` at ``shape`` (a
+    prefill or decode cell) under ``plan`` on ``mesh`` (a ``DeviceMesh``
+    over a fake world; rank 0 in ``run_cell``), traced once on fake
+    tensors: the whole inputs, the rank's block of the parameters and
+    of a fresh cache. Returns the plan, the
     rank count and the step's roofline, collectives and memory (the
     parameter and cache bytes of the rank beside its live peak)."""
     import torch
@@ -195,12 +216,7 @@ def trace_serve(cfg, shape, plan, mesh, *, label: str = "") -> dict:
     n_chips = int(mesh.size())
     model = get_model(cfg, device="cpu")
     kind = shape.kind
-    result = {"plan": {"diloco_axis": plan.diloco_axis,
-                       "n_workers": plan.n_workers,
-                       "batch_axes": plan.batch_axes, "remat": plan.remat,
-                       "seq_axis": plan.seq_axis,
-                       "microbatches": plan.microbatches},
-              "n_chips": n_chips}
+    result = {"plan": _plan_record(plan), "n_chips": n_chips}
     # the groups are made outside fake mode (they hold real tensors)
     fn, _ = step_lib.build_serve_step(model, plan, mesh, kind)
     with FakeTensorMode():
@@ -234,9 +250,10 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
         return _write(dict(result, skipped="no sub-quadratic path for "
                            "500k dense attn"), out_dir)
     plan = make_plan(cfg, shape, MESH_AXES[mesh_kind])
-    if plan.act_seq_axis:
-        return _write(dict(result, not_ported=NOT_PORTED_SP), out_dir)
-    mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
+    rank = (traced_rank(plan, MESH_AXES[mesh_kind])[0]
+            if shape.kind == "train" else 0)
+    mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"),
+                                rank=rank)
     label = f"{arch}/{shape_name}/{mesh_kind}"
     if shape.kind != "train":
         result.update(trace_serve(cfg, shape, plan, mesh, label=label))
@@ -251,9 +268,10 @@ def run_custom(arch: str, n_layers: int | None, seq_len: int,
                global_batch: int, mesh_shape: tuple, sync_too: bool = True,
                quant: str = "int8") -> dict:
     """A train cell of ``arch`` cut to ``n_layers`` at (``global_batch``,
-    ``seq_len``) on a ("data", "model") fake mesh of ``mesh_shape``:
-    the trace of a configuration run on cards (``chip_smoke.py`` sets
-    one beside its measured step)."""
+    ``seq_len``) on a ("data", "model") fake mesh of ``mesh_shape``, or
+    a ("pod", "data", "model") one when it has three dims: the trace of
+    a configuration run on cards (``chip_smoke.py`` sets one beside its
+    measured step), of the rank ``traced_rank`` names."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -265,9 +283,11 @@ def run_custom(arch: str, n_layers: int | None, seq_len: int,
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     shape = ShapeConfig("custom", "train", seq_len, global_batch)
-    names = ("data", "model")
-    plan = make_plan(cfg, shape, dict(zip(names, mesh_shape)))
-    mesh = make_fake_mesh(mesh_shape, names)
+    names = ("pod", "data", "model")[-len(mesh_shape):]
+    amap = dict(zip(names, mesh_shape))
+    plan = make_plan(cfg, shape, amap)
+    mesh = make_fake_mesh(mesh_shape, names,
+                          rank=traced_rank(plan, amap)[0])
     result = {"arch": arch, "n_layers": cfg.n_layers, "seq_len": seq_len,
               "global_batch": global_batch, "mesh": list(mesh_shape)}
     result.update(trace(cfg, shape, plan, mesh, sync_too=sync_too,
@@ -288,9 +308,10 @@ def main():
     ap.add_argument("--quant", default="int8")
     ap.add_argument("--out-dir", type=pathlib.Path, default=OUT_DIR)
     ap.add_argument("--mesh-shape", default=None,
-                    help="data,model: trace a custom train cell on a fake "
-                         "mesh of this shape (with --n-layers, --seq-len, "
-                         "--global-batch) and print its JSON")
+                    help="data,model or pod,data,model: trace a custom "
+                         "train cell on a fake mesh of this shape (with "
+                         "--n-layers, --seq-len, --global-batch) and print "
+                         "its JSON")
     ap.add_argument("--n-layers", type=int, default=None)
     ap.add_argument("--seq-len", type=int, default=4096)
     ap.add_argument("--global-batch", type=int, default=256)
@@ -313,7 +334,7 @@ def main():
         return
 
     from repro_torch.configs import ASSIGNED, SHAPES
-    failures, kinds = [], {"done": 0, "not_ported": 0, "skipped": 0}
+    failures, kinds = [], {"done": 0, "skipped": 0}
     for mesh_kind in ("single", "multi"):
         for arch in ASSIGNED:
             for shape_name in SHAPES:
@@ -334,8 +355,7 @@ def main():
                     failures.append((mesh_kind, arch, shape_name))
                     continue
                 cell = json.loads(tgt.read_text())
-                kinds[next((k for k in ("not_ported", "skipped")
-                            if k in cell), "done")] += 1
+                kinds["skipped" if "skipped" in cell else "done"] += 1
     print("CELLS:", kinds)
     print("FAILURES:", failures)
     sys.exit(1 if failures else 0)

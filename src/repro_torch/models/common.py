@@ -62,7 +62,11 @@ def run_layer(fn, p: dict, *args, remat: bool = False, fetch=None):
     with ``remat`` under ``torch.utils.checkpoint``, so the layer's
     activations, and the fetch, are recomputed in backward (the
     reference's ``jax.checkpoint`` per layer). With neither it is the
-    plain call."""
+    plain call. The recompute replays ``body``'s ops in their order, so
+    the collectives inside it (the fetch, a sequence split's K/V
+    gather) run again in the same order on every rank of a group, whose
+    graphs are alike; where the checkpoint stops its recompute early,
+    it stops at the same op on each."""
     if fetch is None and not remat:
         return fn(p, *args)
 
@@ -119,11 +123,16 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 def cross_entropy_max_z(logits: torch.Tensor, targets: torch.Tensor,
                         mask: torch.Tensor | None = None,
-                        z_weight: float = 2e-4):
+                        z_weight: float = 2e-4, split=None):
     """CE + auxiliary max-z loss (paper: Yang et al. 2023, weight 2e-4).
 
     logits: (..., V), upcast to fp32; targets int ids; mask 0/1.
-    Returns (loss, metrics dict)."""
+    Returns (loss, metrics dict). Under ``split`` (an
+    ``act_hints.LossSplit``: the tokens are this rank's share of a
+    worker's batch) the sums are divided by the mask sum of the whole
+    batch, all-reduced over the worker's ranks, so the loss and the
+    metrics are this rank's terms of the worker's: they add up over
+    the ranks to the one batch's values."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
@@ -133,7 +142,8 @@ def cross_entropy_max_z(logits: torch.Tensor, targets: torch.Tensor,
     if mask is None:
         mask = torch.ones(tok.shape, dtype=torch.float32, device=tok.device)
     mask = mask.float()
-    denom = torch.clamp_min(mask.sum(), 1.0)
+    total = mask.sum() if split is None else split.all_reduce(mask.sum())
+    denom = torch.clamp_min(total, 1.0)
     loss = (tok * mask).sum() / denom
     ce_mean = (ce * mask).sum() / denom
     return loss, {"ce": ce_mean, "z": (z * mask).sum() / denom,

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import common
+from repro_torch.sharding import act_hints
 
 
 def _hd(cfg) -> int:
@@ -132,10 +133,11 @@ def init_encdec(cfg, generator: torch.Generator, *, device="cuda") -> dict:
 # -- blocks -------------------------------------------------------------------
 
 
-def _mha(cfg, p, xq, xkv, *, causal, positions=None):
+def _mha(cfg, p, xq, xkv, *, causal, positions=None, split=None):
     """Prefill attention of ``xq`` into ``xkv`` (RoPE on both when
     ``positions`` is given: self-attention), through
-    ``attention.attention``."""
+    ``attention.attention``. ``split``: self-attention over positions
+    [lo, hi) of a sequence split, K/V gathered over its group."""
     hd = _hd(cfg)
     b, sq, _ = xq.shape
     sk = xkv.shape[1]
@@ -145,7 +147,12 @@ def _mha(cfg, p, xq, xkv, *, causal, positions=None):
     if positions is not None:
         q = common.apply_rope(q, positions, cfg.rope_theta)
         k = common.apply_rope(k, positions, cfg.rope_theta)
-    o = attn.attention(q, k, v, causal=causal, block_q=cfg.block_q)
+    q_offset = 0
+    if split is not None:
+        k, v = split.gather_seq(k), split.gather_seq(v)
+        q_offset = split.lo
+    o = attn.attention(q, k, v, causal=causal, q_offset=q_offset,
+                       block_q=cfg.block_q)
     return o.reshape(b, sq, -1) @ p["wo"]
 
 
@@ -155,50 +162,67 @@ def _mlp(cfg, p, x):
                          p["mlp"]["down"])
 
 
-def _positions(b: int, s: int, device) -> torch.Tensor:
-    return torch.arange(s, device=device)[None].expand(b, s)
+def _positions(b: int, s: int, device, lo: int = 0) -> torch.Tensor:
+    return torch.arange(lo, lo + s, device=device)[None].expand(b, s)
 
 
-def _enc_block(cfg, p, x, pos):
+def _enc_block(cfg, p, x, pos, split=None):
     h = common.rms_norm(x, p["ln_attn"], cfg.norm_eps)
-    x = x + _mha(cfg, p["attn"], h, h, causal=False, positions=pos)
+    x = x + _mha(cfg, p["attn"], h, h, causal=False, positions=pos,
+                 split=split)
     return x + _mlp(cfg, p, x)
 
 
-def encode(cfg, params, src_embeds, *, remat=False, fetch=None):
+def encode(cfg, params, src_embeds, *, remat=False, fetch=None,
+           split=None):
     """Encoder forward: non-causal self-attention with RoPE over the
     frame embeddings -> memory (B, L_src, d_model), final-normed.
-    ``remat`` / ``fetch`` per layer: ``common.run_layer``."""
+    ``remat`` / ``fetch`` per layer: ``common.run_layer``. ``split``
+    (an ``act_hints.SeqSplit`` over the source): this rank runs source
+    positions [lo, hi) and returns their memory, attending over the
+    gathered K/V."""
     x = src_embeds.to(cfg.torch_dtype)
-    pos = _positions(x.shape[0], x.shape[1], x.device)
+    lo = 0
+    if split is not None:
+        x, lo = x[:, split.lo:split.hi], split.lo
+    pos = _positions(x.shape[0], x.shape[1], x.device, lo)
     n_enc, _ = n_enc_dec(cfg)
 
     def layer(p, x):
-        return _enc_block(cfg, p, x, pos)
+        return _enc_block(cfg, p, x, pos, split)
     for i in range(n_enc):
         x = common.run_layer(layer, common.tree_index(params["enc"], i), x,
                              remat=remat, fetch=fetch)
     return common.rms_norm(x, params["ln_enc"], cfg.norm_eps)
 
 
-def _dec_block(cfg, p, x, memory, pos):
+def _dec_block(cfg, p, x, memory, pos, split=None):
     h = common.rms_norm(x, p["ln_self"], cfg.norm_eps)
-    x = x + _mha(cfg, p["self"], h, h, causal=True, positions=pos)
+    x = x + _mha(cfg, p["self"], h, h, causal=True, positions=pos,
+                 split=split)
     h = common.rms_norm(x, p["ln_cross"], cfg.norm_eps)
     x = x + _mha(cfg, p["cross"], h, memory, causal=False)
     return x + _mlp(cfg, p, x)
 
 
-def decoder_logits(cfg, params, memory, tokens, *, remat=False, fetch=None):
+def decoder_logits(cfg, params, memory, tokens, *, remat=False, fetch=None,
+                   split=None):
     """Teacher-forced decoder over ``tokens`` (B, S) against the encoder
     ``memory`` -> logits (B, S, V). Plain PyTorch, differentiable;
-    ``remat`` / ``fetch`` per layer: ``common.run_layer``."""
+    ``remat`` / ``fetch`` per layer: ``common.run_layer``. ``split``
+    (an ``act_hints.SeqSplit`` over the target): this rank runs target
+    positions [lo, hi) (causal self-attention over the gathered K/V at
+    ``q_offset`` lo) against the whole ``memory``, and returns their
+    logits."""
+    lo = 0
+    if split is not None:
+        tokens, lo = tokens[:, split.lo:split.hi], split.lo
     x = common.embedding_lookup(params["embed"], tokens)
-    pos = _positions(x.shape[0], x.shape[1], x.device)
+    pos = _positions(x.shape[0], x.shape[1], x.device, lo)
     _, n_dec = n_enc_dec(cfg)
 
     def layer(p, x, memory):
-        return _dec_block(cfg, p, x, memory, pos)
+        return _dec_block(cfg, p, x, memory, pos, split)
     for i in range(n_dec):
         x = common.run_layer(layer, common.tree_index(params["dec"], i), x,
                              memory, remat=remat, fetch=fetch)
@@ -210,15 +234,35 @@ def loss_fn(cfg, params, batch, *, remat=False, fetch=None):
     """(loss, metrics) of one batch {"src_embeds", "tokens", "targets",
     "mask"}: cross-entropy + max-z over the decoder's logits. ``remat``
     checkpoints each layer; ``fetch`` maps each layer's weights (and the
-    top-level ones) before use (``common.run_layer``)."""
+    top-level ones) before use (``common.run_layer``).
+
+    Under an ``act_hints.SeqSplit`` (the sequence-parallel train step)
+    the split is laid over the source for the encoder and over the
+    target for the decoder, each rank running its positions of both.
+    Cross-attention needs the whole memory: the encoder's output is
+    gathered once (``gather_seq``, whose backward sums the group's
+    gradients of it), and every decoder layer projects its cross K/V
+    from it. Under an ``act_hints.LossSplit`` the loss and metrics are
+    this rank's terms of the worker's."""
     params = common.fetch_top(params, fetch)
-    memory = encode(cfg, params, batch["src_embeds"], remat=remat,
-                    fetch=fetch)
+    split = act_hints.seq_split()
+    src, targets, mask = batch["src_embeds"], batch["targets"], \
+        batch.get("mask")
+    src_split = tgt_split = None
+    if split is not None:
+        src_split = split.over(src.shape[1])
+        tgt_split = split.over(targets.shape[1])
+        targets = targets[:, tgt_split.lo:tgt_split.hi]
+        mask = None if mask is None else mask[:, tgt_split.lo:tgt_split.hi]
+    memory = encode(cfg, params, src, remat=remat, fetch=fetch,
+                    split=src_split)
+    if src_split is not None:
+        memory = src_split.gather_seq(memory)
     logits = decoder_logits(cfg, params, memory, batch["tokens"],
-                            remat=remat, fetch=fetch)
-    return common.cross_entropy_max_z(logits, batch["targets"],
-                                      batch.get("mask"),
-                                      z_weight=cfg.max_z_weight)
+                            remat=remat, fetch=fetch, split=tgt_split)
+    return common.cross_entropy_max_z(logits, targets, mask,
+                                      z_weight=cfg.max_z_weight,
+                                      split=act_hints.loss_split())
 
 
 # -- serving ------------------------------------------------------------------

@@ -26,9 +26,10 @@ run. Sums in another order agree with the reference within rounding
 (``tests/test_torch_moe.py`` holds them with ``allclose``).
 
 Capacity, the top-C choice and ``lb_loss`` depend on every token of a
-block, so a batch split over ranks (the FSDP train step) routes over the
-gathered scores of the whole batch (``_moe_split``), as the reference's
-one SPMD program does.
+block, so a batch split over ranks (the FSDP train step), by rows or by
+rows and positions (its sequence-parallel branch), routes over the
+gathered scores of the whole batch in the reference's b-major token
+order (``_moe_split``), as the reference's one SPMD program does.
 """
 from __future__ import annotations
 
@@ -91,7 +92,8 @@ def init_moe(p: dict, generator: torch.Generator, d_model: int,
 
 
 def apply_moe(p: dict, x: torch.Tensor, *, top_k: int,
-              capacity_factor: float = 1.25, full_capacity: bool = False):
+              capacity_factor: float = 1.25, full_capacity: bool = False,
+              split=None):
     """x: (B, S, d) -> ((B, S, d), {"lb_loss", "dropped_frac"}).
 
     Tokens go in blocks of ``TOKEN_BLOCK`` when there are more than one
@@ -100,12 +102,17 @@ def apply_moe(p: dict, x: torch.Tensor, *, top_k: int,
     ``full_capacity``: every token is kept (capacity = all tokens). The
     serving paths set it, so a slot's output never depends on what the
     other slots routed. Under an ``act_hints.BatchSplit`` (a worker's
-    batch split over ranks, training) ``x`` is this rank's rows and the
-    routing is the whole batch's (``_moe_split``)."""
+    batch split over ranks, training) ``x`` is this rank's rows, under
+    an ``act_hints.GridSplit`` its rows' positions [lo, hi), and the
+    routing is the whole batch's (``_moe_split``). ``split``: that
+    split (default: the active hint's)."""
     bsz, seq, d = x.shape
     t = bsz * seq
     xf = x.reshape(t, d)
-    split = None if full_capacity else act_hints.batch_split()
+    if full_capacity:
+        split = None
+    elif split is None:
+        split = act_hints.batch_split()
     if split is not None and split.size > 1:
         out, aux = _moe_split(p, xf, split, top_k=top_k,
                               capacity_factor=capacity_factor)
@@ -216,15 +223,17 @@ def _moe_block(p: dict, xf: torch.Tensor, *, top_k: int,
 def _moe_split(p: dict, xf: torch.Tensor, split, *, top_k: int,
                capacity_factor: float):
     """``apply_moe`` of this rank's tokens (T_local, d) when the batch is
-    split over a group (``act_hints.BatchSplit``): routing as over the
-    whole batch. The fp32 router probabilities are gathered in row
-    order, and the whole batch's blocks (``TOKEN_BLOCK``), each
-    expert's top-C and the auxiliaries are taken over them, as one
-    device would; then the experts run on this rank's tokens that they
-    took (the longest expert's list of them). The gather's
-    backward sums the ranks' gradients of the auxiliaries, so a step
-    that divides the summed gradient by its rank count counts
-    ``lb_loss`` once."""
+    split over a group (``act_hints.BatchSplit`` or ``GridSplit``):
+    routing as over the whole batch. The fp32 router probabilities are
+    gathered in the reference's token order, and the whole batch's
+    blocks (``TOKEN_BLOCK``), each expert's top-C and the auxiliaries
+    are taken over them, as one device would; then the experts run on
+    this rank's tokens that they took (the longest expert's list of
+    them). The gather's backward sums the ranks' gradients of the
+    auxiliaries, so a step that divides the summed gradient by its rank
+    count counts ``lb_loss`` once (a sequence-parallel step, which sums
+    its ranks' gradients, divides ``lb_loss`` by the rank count in each
+    rank's loss instead: ``act_hints.LossSplit``)."""
     t = xf.shape[0]
     n_experts = p["router"].shape[1]
     probs = torch.softmax((xf @ p["router"]).float(), dim=-1)
@@ -248,7 +257,7 @@ def _moe_split(p: dict, xf: torch.Tensor, split, *, top_k: int,
         aux = _balance(pb, sel_b, taken, top_k)
         lbs.append(aux["lb_loss"])
         drops.append(aux["dropped_frac"])
-    mine = keep[split.index * t:(split.index + 1) * t]           # (T_l, E)
+    mine = split.mine(keep)                                      # (T_l, E)
     scores = sel * mine
     # an expert's list is as long as the longest list of this rank's
     # kept tokens (one host sync). On fake tensors (the dry run) it is

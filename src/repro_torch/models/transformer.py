@@ -151,18 +151,21 @@ def _qkv(cfg, p, x, positions):
             common.apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def _attn_block(cfg, p, x, *, positions, layer_cache=None, rolling=False):
+def _attn_block(cfg, p, x, *, positions, layer_cache=None, rolling=False,
+                split=None):
     """Self-attention sublayer -> (out, (k, v)). With a ``layer_cache``
     and one token this is a decode step: K/V go into the cache in place
-    and attention runs against it (the flash-decode kernel on CUDA)."""
+    and attention runs against it (the flash-decode kernel on CUDA).
+    ``split``: the sequence split of this rank's positions (default:
+    the active hint's); K/V are gathered over its group."""
     hd = _head_dim(cfg)
     b, s, _ = x.shape
     q, k, v = _qkv(cfg, p, x, positions)
-    split = act_hints.seq_split()
+    split = split or act_hints.seq_split()
     if layer_cache is not None and s == 1:           # decode
         attn.cache_update(layer_cache, k, v, rolling=rolling)
         o = attn.decode_attention(q, layer_cache, window=cfg.sliding_window)
-    elif split is not None:          # a prefill's positions [lo, hi)
+    elif split is not None:          # positions [lo, hi) of the stream
         k, v = split.gather_seq(k), split.gather_seq(v)
         o = attn.attention(q, k, v, causal=True, window=cfg.sliding_window,
                            q_offset=split.lo, block_q=cfg.block_q)
@@ -172,26 +175,28 @@ def _attn_block(cfg, p, x, *, positions, layer_cache=None, rolling=False):
     return o.reshape(b, s, cfg.n_heads * hd) @ p["wo"], (k, v)
 
 
-def _ffn_block(cfg, p, x, serving: bool = False):
+def _ffn_block(cfg, p, x, serving: bool = False, tokens=None):
     """FFN sublayer -> (out, aux): an MoE layer (``moe`` in ``p``)
     returns its ``lb_loss`` and ``dropped_frac``, a dense one ``{}``.
     ``serving`` forces full capacity: a slot's tokens must never depend
-    on what the other slots routed."""
+    on what the other slots routed. ``tokens``: the split of a worker's
+    tokens the routing gathers over (default: the active hint's)."""
     h = common.rms_norm(x, p["ln_mlp"], cfg.norm_eps)
     if "moe" in p:
         return moe.apply_moe(p["moe"], h, top_k=cfg.moe.top_k,
                              capacity_factor=cfg.moe.capacity_factor,
-                             full_capacity=serving)
+                             full_capacity=serving, split=tokens)
     return common.swiglu(h, p["mlp"]["gate"], p["mlp"]["up"],
                          p["mlp"]["down"]), {}
 
 
 def _layer(cfg, p, x, *, positions, layer_cache=None, rolling=False,
-           serving=False):
+           serving=False, split=None, tokens=None):
     a, kv = _attn_block(cfg, p, x, positions=positions,
-                        layer_cache=layer_cache, rolling=rolling)
+                        layer_cache=layer_cache, rolling=rolling,
+                        split=split)
     x = x + a
-    f, aux = _ffn_block(cfg, p, x, serving)
+    f, aux = _ffn_block(cfg, p, x, serving, tokens)
     return x + f, kv, aux
 
 
@@ -206,6 +211,18 @@ def _stage_layers(cfg, params, n_scan: int, first: bool) -> list[dict]:
 # -- training -----------------------------------------------------------------
 
 
+def _stream(cfg, params, tokens, frontend, lo: int, hi: int):
+    """Positions [lo, hi) of the residual stream's input: the frontend's
+    (a VLM's first F positions) and the embeddings of the tokens after
+    them, so a rank embeds only its own tokens."""
+    nf = 0 if frontend is None else frontend.shape[1]
+    x = common.embedding_lookup(params["embed"],
+                                tokens[:, max(lo - nf, 0):max(hi - nf, 0)])
+    if lo < nf:
+        x = torch.cat([frontend[:, lo:min(hi, nf)].to(x.dtype), x], dim=1)
+    return x
+
+
 def forward(cfg, params, tokens, *, frontend=None, remat=False, fetch=None):
     """Training/scoring forward -> (logits (B, F + S, V), aux). Plain
     PyTorch, differentiable (attention is ``attention.attention``).
@@ -215,16 +232,37 @@ def forward(cfg, params, tokens, *, frontend=None, remat=False, fetch=None):
     loss (0 without MoE) and, on MoE models, ``aux["dropped_frac"]``
     their mean share of dropped routes. ``remat`` checkpoints each
     layer; ``fetch`` maps each layer's weights (and the top-level ones)
-    before use (``common.run_layer``)."""
+    before use (``common.run_layer``).
+
+    Under an ``act_hints.SeqSplit`` (the sequence-parallel train step)
+    the split is laid over the F + S positions of the stream and this
+    rank runs positions [lo, hi) of it: its own tokens embedded, RoPE
+    and the causal mask (and a sliding window) at global positions, K/V
+    gathered over the group in every layer (the gather's backward sums
+    the group's gradients), the MoE routing over the worker's token
+    grid (``act_hints.GridSplit``); the logits are its positions'. The
+    layer closure holds both splits, so a rematerialised layer gathers
+    as its forward did."""
     params = common.fetch_top(params, fetch)
-    x = common.embedding_lookup(params["embed"], tokens)
-    if frontend is not None:
-        x = torch.cat([frontend.to(x.dtype), x], dim=1)
+    split = act_hints.seq_split()
+    tok_split = act_hints.batch_split()
+    nf = 0 if frontend is None else frontend.shape[1]
+    if split is not None:
+        split = split.over(nf + tokens.shape[1])
+        if tok_split is not None:
+            tok_split = tok_split.over(nf + tokens.shape[1])
+        x = _stream(cfg, params, tokens, frontend, split.lo, split.hi)
+    else:
+        x = common.embedding_lookup(params["embed"], tokens)
+        if frontend is not None:
+            x = torch.cat([frontend.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    lo = 0 if split is None else split.lo
+    positions = torch.arange(lo, lo + s, device=x.device)[None].expand(b, s)
     lbs, drops = [], []
     def layer(p, x):
-        return _layer(cfg, p, x, positions=positions)
+        return _layer(cfg, p, x, positions=positions, split=split,
+                      tokens=tok_split)
     for p in _stage_layers(cfg, params, n_scan_layers(cfg), True):
         x, _, aux = common.run_layer(layer, p, x, remat=remat, fetch=fetch)
         if aux:
@@ -244,18 +282,38 @@ def loss_fn(cfg, params, batch, *, remat=False, fetch=None):
     for a VLM, "frontend" (B, F, d_model): its F positions are sliced
     off the logits before the loss. MoE models add ``lb_weight`` x the
     load-balance loss and report ``lb_loss`` and ``dropped_frac``.
-    ``remat`` / ``fetch``: see ``forward``."""
+    ``remat`` / ``fetch``: see ``forward``.
+
+    Under a sequence split the rank scores its positions of the stream
+    that have targets (positions >= F), and under an
+    ``act_hints.LossSplit`` the loss and every metric are its terms of
+    the worker's (``common.cross_entropy_max_z``; ``lb_loss`` and
+    ``dropped_frac``, whole on every rank, divided by the rank count),
+    which add up over the ranks to the one batch's."""
     frontend = batch.get("frontend")
     logits, aux = forward(cfg, params, batch["tokens"], frontend=frontend,
                           remat=remat, fetch=fetch)
-    n_front = 0 if frontend is None else frontend.shape[1]
+    nf = 0 if frontend is None else frontend.shape[1]
+    targets, mask = batch["targets"], batch.get("mask")
+    split = act_hints.seq_split()
+    if split is not None:
+        sp = split.over(nf + targets.shape[1])
+        t_lo, t_hi = max(sp.lo - nf, 0), max(sp.hi - nf, 0)
+        targets = targets[:, t_lo:t_hi]
+        mask = None if mask is None else mask[:, t_lo:t_hi]
+        logits = logits[:, max(nf - sp.lo, 0):]
+    else:
+        logits = logits[:, nf:]
+    ls = act_hints.loss_split()
     loss, metrics = common.cross_entropy_max_z(
-        logits[:, n_front:], batch["targets"], batch.get("mask"),
-        z_weight=cfg.max_z_weight)
+        logits, targets, mask, z_weight=cfg.max_z_weight, split=ls)
     if cfg.moe is not None:
-        loss = loss + cfg.moe.lb_weight * aux["lb_loss"]
-        metrics["lb_loss"] = aux["lb_loss"]
-        metrics["dropped_frac"] = aux["dropped_frac"]
+        lb, dropped = aux["lb_loss"], aux["dropped_frac"]
+        if ls is not None:
+            lb, dropped = lb / ls.n, dropped / ls.n
+        loss = loss + cfg.moe.lb_weight * lb
+        metrics["lb_loss"] = lb
+        metrics["dropped_frac"] = dropped
     metrics["loss"] = loss
     return loss, metrics
 

@@ -231,6 +231,26 @@ def local_block(x, spec: tuple, mesh_axes: dict[str, int],
     return x
 
 
+def stacked_blocks(x, spec: tuple, mesh_axes: dict[str, int],
+                   axes: tuple):
+    """Every block of ``x`` (laid out as ``spec``) over the ranks of
+    ``axes`` (each an axis ``spec`` lays a dim over), stacked in their
+    row-major order (mesh order): (n, *block), row r the
+    ``local_block`` of rank r, in one copy."""
+    shape, pos, local = [], {}, []
+    spec = tuple(spec) + (None,) * (x.dim() - len(spec))
+    for d, entry in enumerate(spec):
+        names = _entry_axes(entry)
+        for a in names:
+            pos[a] = len(shape)
+            shape.append(mesh_axes[a])
+        local.append(len(shape))
+        shape.append(x.shape[d] // math.prod(mesh_axes[a] for a in names))
+    order = [pos[a] for a in axes] + local
+    block = tuple(shape[i] for i in local)
+    return x.reshape(shape).permute(order).reshape((-1,) + block)
+
+
 def placements(spec: tuple, mesh) -> tuple:
     """DTensor placements of a ``spec``-laid tensor over ``mesh`` (a
     ``DeviceMesh`` with named dims): ``Shard(d)`` on each mesh dim that

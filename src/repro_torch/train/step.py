@@ -667,6 +667,95 @@ def _make_fetch(model, pspecs, sub, flat):
     return fetch
 
 
+@dataclasses.dataclass(frozen=True)
+class _ListLayout:
+    """How ``_ListGather`` moves one parameter: its spec, the group of
+    each sharded dim (in dim order), the worker axes the spec lays it
+    over and their group (None: replicated), and the group over the
+    worker axes it is replicated on (None: no such axis of more than
+    one rank)."""
+    spec: tuple
+    dims: tuple                   # ((dim, group), ...)
+    laid: tuple                   # the worker axes the spec lays
+    scatter: object               # their group, or None
+    replicas: object              # group over the other worker axes
+    amap: dict
+
+
+class _ListGather(torch.autograd.Function):
+    """``_Gather`` through ``rank_mesh``'s list collectives, the
+    sequence-parallel step's transport (``CardMailboxes`` where the
+    worker's ranks share a card, which NCCL cannot serve). Forward: the
+    block all-gathered along each sharded dim over that dim's group.
+    Backward: the gradient, a partial sum on each of the worker's
+    ranks, reduce-scattered over the axes the spec lays it over (rank
+    r's row its block: ``partition.stacked_blocks``), then summed over
+    the axes it is replicated on. The result is the SUM over the
+    worker's ranks, as ``_Gather``'s."""
+
+    @staticmethod
+    def forward(ctx, x, lay):
+        ctx.lay = lay
+        if not lay.dims:
+            return x.view_as(x)
+        for d, group in lay.dims:
+            x = torch.cat(rank_mesh.all_gather_list(x.contiguous(), group,
+                                                    "weights"), dim=d)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        lay = ctx.lay
+        if lay.scatter is not None:
+            g = rank_mesh.reduce_scatter_rows(partition.stacked_blocks(
+                g, lay.spec, lay.amap, lay.laid), lay.scatter, "weights")
+        if lay.replicas is not None:
+            g = rank_mesh.all_reduce_sum(g.contiguous(), lay.replicas,
+                                         "weights")
+        return g, None
+
+
+def _make_list_fetch(model, pspecs, mesh, worker_axes: tuple):
+    """The loss's ``fetch`` through ``_ListGather`` (see ``_make_fetch``
+    for the paths). Collective: every rank makes the groups, and their
+    card mailboxes, in one order."""
+    amap = mesh_axes(mesh)
+    specs: dict = {}
+    for rel, spec in _layer_layouts(model.axes(), pspecs):
+        if specs.setdefault(rel, spec) != spec:
+            raise ValueError(f"parameter path {rel} has two layouts")
+
+    def laid(spec) -> tuple:
+        axes = {a for e in spec for a in partition._entry_axes(e)}
+        return tuple(a for a in worker_axes if a in axes)
+
+    wanted = set()
+    for spec in specs.values():
+        wanted |= {partition._entry_axes(e) for e in spec}
+        on = laid(spec)
+        wanted |= {on, tuple(a for a in worker_axes if a not in on)}
+    groups = {axes: _group(mesh, axes) for axes in sorted(wanted)
+              if axes and math.prod(amap[a] for a in axes) > 1}
+    for g in groups.values():
+        rank_mesh.use_card_mailboxes(g, model.device)
+
+    def layout(spec):
+        on = laid(spec)
+        off = tuple(a for a in worker_axes if a not in on)
+        return _ListLayout(
+            spec, tuple((d, groups[partition._entry_axes(e)])
+                        for d, e in enumerate(spec)
+                        if partition._entry_axes(e) in groups),
+            on, groups.get(on), groups.get(off), amap)
+    table = {rel: layout(spec) for rel, spec in specs.items()}
+
+    def fetch(tree, prefix=()):
+        if isinstance(tree, dict):
+            return {k: fetch(v, prefix + (k,)) for k, v in tree.items()}
+        return _ListGather.apply(tree, table[prefix])
+    return fetch
+
+
 def _flat(sub):
     """``sub`` as one mesh dim (flattened when it has more)."""
     return sub._flatten() if sub.ndim > 1 else sub
@@ -752,6 +841,45 @@ def _batch_split(mesh, entry, coords):
         index, size, lambda t: _GatherRows.apply(t, group, index))
 
 
+def _sp_hints(mesh, plan, entry, worker_axes: tuple, wgroup, device):
+    """The sequence-parallel step's hint maker: ``hint(rows)`` for
+    microbatches of ``rows`` rows a rank (``act_hints.Hint``: the
+    sequence split over ``plan.act_seq_axis``, the worker's token grid
+    for the MoE routing and the loss split over the worker's ranks).
+    Collective: every rank makes the groups, and their card mailboxes,
+    in one order."""
+    from repro_torch.sharding import act_hints
+    amap, coords = mesh_axes(mesh), _coords(mesh)
+    sp = plan.act_seq_axis
+    n_sp = amap[sp]
+    sgroup = _group(mesh, (sp,))
+    for g in (sgroup, wgroup):
+        rank_mesh.use_card_mailboxes(g, device)
+    # n_sp blocks, which the model lays over each stream (``over``)
+    seq = act_hints.SeqSplit(
+        coords[sp], act_hints.even_bounds(n_sp, n_sp),
+        lambda t: rank_mesh.all_gather_list(t, sgroup, "kv"),
+        lambda rows: rank_mesh.reduce_scatter_rows(rows, sgroup, "kv"))
+    loss = act_hints.LossSplit(
+        math.prod(amap[a] for a in worker_axes),
+        lambda t: rank_mesh.all_reduce_sum(t, wgroup))
+    ranks = [dict(zip(worker_axes, (int(i) for i in idx)))
+             for idx in np.ndindex(*(amap[a] for a in worker_axes))]
+    me = rank_mesh.axes_index(amap, worker_axes, coords)
+    blocks = [rank_mesh.axes_index(amap, partition._entry_axes(entry), c)
+              for c in ranks]
+
+    def hint(rows: int):
+        grid = act_hints.GridSplit(
+            me, tuple((b * rows, (b + 1) * rows) for b in blocks),
+            tuple(c[sp] for c in ranks), n_sp,
+            lambda t: rank_mesh.all_gather_list(t, wgroup, "routing"),
+            lambda rows: rank_mesh.reduce_scatter_rows(rows, wgroup,
+                                                       "routing"))
+        return act_hints.Hint(batch=grid, seq=seq, loss=loss)
+    return hint
+
+
 def build_train_step(model, plan, mesh, optimizer: AdamW):
     """Returns (train_step, state_specs): the hybrid DiLoCo-FSDP inner
     step of one rank over ``mesh`` (a ``DeviceMesh`` with the plan's
@@ -779,21 +907,52 @@ def build_train_step(model, plan, mesh, optimizer: AdamW):
     worker's batch, as in the reference, cut over the batch axes. When
     that cut does not divide (dbrx-132b single-pod: one row a rank), the
     rank splits its own rows into as many microbatches as divide them.
-    AdamW runs on the local shards."""
+    AdamW runs on the local shards.
+
+    Sequence parallelism (``plan.act_seq_axis`` of more than one rank;
+    the reference's residual spec ``P(batch_entry, act_seq_axis)``):
+    each rank runs its rows' positions [lo, hi) of every microbatch
+    (``act_hints.SeqSplit``, even bounds; the models gather K/V and an
+    MoE's routing over the worker with summing backwards), and its loss
+    is its tokens' masked sum over the mask sum of the worker's
+    (micro)batch (``act_hints.LossSplit``), so the ranks' losses add up
+    to the reference's one loss: the gradients are summed over the
+    worker's ranks and not divided, and the metrics are the worker's
+    (the ranks' terms summed). The weights move through ``_ListGather``
+    (card mailboxes where the ranks share a card). Microbatches must
+    be the reference's rows cut over the batch axes."""
     from repro_torch.sharding import act_hints
     from repro_torch.train.state import TrainState
     amap = mesh_axes(mesh)
     pspecs = param_specs(model, plan, mesh)
     dax = plan.diloco_axis
     sub = _worker_mesh(mesh, dax)
-    n_ranks = math.prod(n for a, n in amap.items() if a != dax)
+    worker_axes = tuple(a for a in amap if a != dax)
+    n_ranks = math.prod(amap[a] for a in worker_axes)
     flat = None if sub is None else _flat(sub)
-    fetch = _make_fetch(model, pspecs, sub, flat)
     bspec = partition.batch_pspec(plan)
     entry = bspec[0] if bspec else None
     n_shards = math.prod(amap[a] for a in partition._entry_axes(entry))
-    split = _batch_split(mesh, entry, _coords(mesh))
-    hint = act_hints.Hint(batch=split) if split is not None else None
+    sp = plan.act_seq_axis
+    sp_on = sp is not None and amap.get(sp, 1) > 1
+    if sp_on:
+        if sp in partition._entry_axes(entry) or sp == dax:
+            raise ValueError(f"plan: the SP axis {sp!r} also splits the "
+                             f"batch or the workers")
+        if model.cfg.family in ("ssm", "hybrid"):
+            # their losses score the whole sequence on every rank, which
+            # the summed gradient would count once a rank
+            raise ValueError(f"sequence parallelism: the {model.cfg.family}"
+                             f" family's loss does not split by positions")
+        wgroup = _group(mesh, worker_axes)
+        fetch = _make_list_fetch(model, pspecs, mesh, worker_axes)
+        sp_hint = _sp_hints(mesh, plan, entry, worker_axes, wgroup,
+                            model.device)
+        hint = None
+    else:
+        fetch = _make_fetch(model, pspecs, sub, flat)
+        split = _batch_split(mesh, entry, _coords(mesh))
+        hint = act_hints.Hint(batch=split) if split is not None else None
     lead = lambda t: partition.with_leading(t, dax)
     state_specs = TrainState(lead(pspecs), AdamWState(
         (dax,) if dax else (), lead(pspecs), lead(pspecs)))
@@ -839,7 +998,8 @@ def build_train_step(model, plan, mesh, optimizer: AdamW):
             else:
                 for a, g in zip(acc, gs):
                     a.add_(g.float())
-        scale = nmb * n_ranks
+        # sequence parallel: the ranks' losses add up to the worker's
+        scale = nmb if sp_on else nmb * n_ranks
         grads = [g / scale if scale > 1 else g for g in acc]
         return grads, {k: v.detach() for k, v in metrics.items()}
 
@@ -851,15 +1011,27 @@ def build_train_step(model, plan, mesh, optimizer: AdamW):
                          tree_map(own, state.opt.v))
         mbs, aligned = microbatches({k: worker_rows(v, coords)
                                      for k, v in batch.items()}, coords)
-        # routing over the whole batch holds only for microbatches of
-        # the reference's rows; the fallback routes each rank's own
-        with act_hints.activation_hints(hint if aligned else None):
+        if sp_on:
+            if not aligned:
+                raise ValueError(
+                    f"sequence parallelism: {plan.microbatches} "
+                    f"microbatches of the worker's rows do not divide "
+                    f"over the batch axes' {n_shards} ranks")
+            use = sp_hint(next(iter(mbs[0].values())).shape[0])
+        else:
+            # routing over the whole batch holds only for microbatches
+            # of the reference's rows; the fallback routes each rank's own
+            use = hint if aligned else None
+        with act_hints.activation_hints(use):
             grads, metrics = grads_of(params, mbs)
         paths = [p for p, _ in leaves_with_paths(params)]
         optimizer.update_(from_paths(paths, grads), opt, params)
         keys = sorted(metrics)
-        vals = _mean_over(torch.stack([metrics[k].float() for k in keys]),
-                          flat, n_ranks)
+        vals = torch.stack([metrics[k].float() for k in keys])
+        if sp_on:
+            vals = rank_mesh.all_reduce_sum(vals, wgroup)
+        else:
+            vals = _mean_over(vals, flat, n_ranks)
         return state, dict(zip(keys, vals.unbind()))
 
     return step, state_specs

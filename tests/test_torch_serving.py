@@ -123,8 +123,9 @@ def test_sample_tokens_masks():
 def test_port_imports_neither_jax_nor_repro(tmp_path):
     """No module of the port imports JAX or ``repro``: neither in an
     importing process nor in the rank processes of a distributed ring
-    (a 2-rank CPU mesh runs one reduction, then each rank lists its
-    modules)."""
+    (a 2-rank CPU mesh runs one reduction, then each rank imports the
+    FSDP launcher and the train step, with its sequence split, and
+    lists its modules)."""
     bad = ("bad = [m for m in sys.modules if m == 'jax' or "
            "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
            "m.startswith('repro.') or m == 'ml_dtypes' or "
@@ -169,6 +170,7 @@ def test_port_imports_neither_jax_nor_repro(tmp_path):
             "repro_torch.sharding.act_hints\n"
             + bad + "assert not bad, bad\n\n"
             "def rank_modules(ctx):\n"
+            "    import repro_torch.launch.fsdp, repro_torch.train.step\n"
             "    " + bad.replace("\n", "\n    ") + "return bad\n\n"
             "if __name__ == '__main__':\n"
             "    from repro_torch.launch.mesh import make_host_mesh\n"
