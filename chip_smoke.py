@@ -162,12 +162,14 @@ Phases, each of which raises on failure (nothing is caught):
    worker's dense cache (16 heads of 128 over kv 8, B = 4, 18 cells)
    and kernel 6 at the paged worker's (32 cells in 16-cell blocks),
    fp32, sized from ``RLConfig`` as the driver sizes them; the reduced
-   ``RLDriver`` card against CPU (the same ledger and counts);
+   ``RLDriver`` card against CPU, 3 outer steps (the same ledger and
+   counts, and rollouts dropped as stale: worker 1's at t = 2);
    ``RLDriver`` on internlm2-1.8b at full width, depth cut to 1, 2
    DiLoCo slots with the int8 ring, the int8 policy chain, worker 0
-   continuous and worker 1 paged, adopt strides (1, 3), 3 outer steps.
-   Every adoption's sha must be the publisher's, the ledger identity
-   hold, the lag stay in the window, 4 versions be published; kernel 5
+   continuous and worker 1 paged, adopt strides (1, 3), 2 outer steps
+   (worker 0 adopts the base and a delta). Every adoption's sha must be
+   the publisher's, the ledger identity hold, the lag stay in the
+   window, 3 versions be published; kernel 5
    (6) launch once per layer per decode step in worker 0's (1's) engine,
    the other never; kernels 2 and 4 once per float leaf per delta (a
    publish encodes and applies it, an adopt applies each delta it
@@ -197,24 +199,28 @@ Phases, each of which raises on failure (nothing is caught):
    against 989 TFLOP/s, the predicted peak; the parameter plus optimizer
    bytes must be equal in both. The trace and the production dry run of
    internlm2-1.8b and dbrx-132b train_4k on the single-pod mesh run on
-   the host (fake world) after the timed step, not beside it; their
-   lines and seconds are printed.
+   the host (fake world, subprocesses at the lowest priority) from the
+   build on and have ended before phase 15 starts, so its (2, 1) path
+   and (1, 1) step run on an otherwise idle host; their lines and
+   seconds are printed.
 
 16. sharded serving (``build_serve_step``, the rank driver
    ``repro_torch.launch.shard_serve``): kernel 5's block variant
    (``flash_decode_partial``: out and the log-sum-exp of one block of a
-   cache) against its plain version at phase 16 (b)'s rank block and at
+   cache) against its plain version at phase 16 (b)'s rank block, at
    h2o-danube-1.8b's production decode block (8 rows, 32 heads over kv
    8 of 80, a wrapped 4096-cell ring in blocks of 256, the merged blocks
-   against kernel 5 on the whole ring), bf16 and fp32, empty blocks
-   included: out within ``TOL``, lse within 1e-5, a repeat bitwise;
+   against kernel 5 on the whole ring) and at (c)'s self and cross
+   blocks (16 heads of 64, 1536 cells in blocks of 512, merged against
+   kernel 5 on the whole cache), bf16 and fp32, empty blocks included:
+   out within ``TOL``, lse within 1e-5, a repeat bitwise;
    timed beside its byte bound and one call of the efficient-attention
    op that returns the log-sum-exp; kernel 5 at a rank's heads of (a)
    (16 query heads over 4 kv heads), held and timed. (a) INTELLECT-1 at full width and
    depth, bf16, on a (1, 2) ("data", "model") mesh of rank processes on
    the card ('model' groups gloo: host-staged): its 8 KV heads divide
    'model', so each rank holds 4 kv heads of the cache and runs kernel 5
-   at 16 query heads; 4 prompts of phase 5's lengths, 16 greedy decode
+   at 16 query heads; 4 prompts of phase 5's lengths, 8 greedy decode
    steps: tokens and every step's logits bitwise those of the
    one-device ``ModelDef.prefill`` / ``decode`` (run first, its logits
    kept on the host, freed before the ranks start), kernel 5 launched
@@ -225,7 +231,17 @@ Phases, each of which raises on failure (nothing is caught):
    tokens (one slot crosses a block boundary while decoding), 32 greedy
    steps: tokens equal to the one-device fp32 run's, every step's
    logits within 1e-4 x max|logit|, the block variant launched 8 times a
-   decode step on each rank (empty blocks included). Every process's
+   decode step on each rank (empty blocks included). (c) seamless-m4t-
+   medium at full width and depth, fp32, on a (1, 3) mesh: 16 KV heads
+   do not divide 3, so the self and cross caches (1536 cells each) are
+   laid by sequence, 512 cells a rank, and the prefill splits the
+   source frames over the ranks (the memory gathered once, each rank
+   projecting the cross K/V of its own cells); 4 requests of a
+   1000-frame source (rank 1's cross block part live, rank 2's empty),
+   32 greedy steps: tokens equal to the one-device fp32 run's, logits
+   within 1e-4 x max|logit|, the block variant launched 12 times a step
+   (6 decoder layers, self and cross) on each rank, the BOS token's
+   step included: 396 a rank. Every process's
    peak of allocated bytes in the phase, summed, under 70 GiB; each
    rank's decode-step median and its share in the 'model' collectives
    printed.
@@ -267,6 +283,7 @@ limit) and the result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -422,13 +439,17 @@ ENCDEC_FD_CASES = [
 # width, depth cut to 1 (publishing and adopting the fp32 policy go
 # through host deflate and the swarm fetch, which scale with the
 # parameters), 2 DiLoCo slots with the int8 ring, the int8 policy chain,
-# 2 rollout workers (0 continuous, 1 paged) adopting on strides (1, 3), 3
-# outer steps; RLConfig's other fields are the JAX package's defaults
+# 2 rollout workers (0 continuous, 1 paged) adopting on strides (1, 3), 2
+# outer steps (the fewest in which worker 0 adopts a delta after the
+# base: the script's time limit); RLConfig's other fields are the JAX
+# package's defaults. The reduced driver takes 3 outer steps: worker 1's
+# rollouts (stride 3) are past the lag window only at t = 2, so its
+# ledger must show drops (on the card as on the CPU)
 RL = {"arch": "internlm2-1.8b", "reduced": False, "n_layers": 1,
       "trainer_workers": 2, "n_workers": 2,
       "engines": ("continuous", "paged"), "adopt_strides": (1, 3),
-      "outer_steps": 3, "codec": "int8"}
-RL_REDUCED = dict(RL, reduced=True, n_layers=None)
+      "outer_steps": 2, "codec": "int8"}
+RL_REDUCED = dict(RL, reduced=True, n_layers=None, outer_steps=3)
 # the summary's counts that depend on neither the weights nor the
 # sampled tokens
 RL_COUNTS = ("outer_steps", "versions_published", "ledger",
@@ -453,28 +474,48 @@ FSDP_DRYRUN = ("internlm2-1.8b", "dbrx-132b")
 FD_LONG = (4, 8192, 8, 4, 128, [8192, 4096, 2048, 1])
 # phase 16: sharded serving on rank processes of the one card. (a) the
 # heads layout: INTELLECT-1 full width and depth, bf16, a (1, 2) mesh,
-# the first 4 requests of phase 5's trace, 16 greedy steps; (b) the
+# the first 4 requests of phase 5's trace, 8 greedy steps (each takes
+# about a second, most of it the weights' gathers); (b) the
 # sequence layout: depth 8, fp32, a (1, 3) mesh, 1536 cells (512 a
 # rank), prompts of these lengths, 32 greedy steps
 SHARD_HEADS = {"arch": "intellect-1", "n_layers": None, "dtype": None,
-               "mesh": (1, 2), "max_len": 512, "n_decode": 16}
+               "mesh": (1, 2), "max_len": 512, "n_decode": 8}
 SHARD_SEQ = {"arch": "intellect-1", "n_layers": 8, "dtype": "float32",
              "mesh": (1, 3), "max_len": 1536,
              "lengths": (100, 500, 1010, 1400), "n_decode": 32, "seed": 0}
+# (c) the enc-dec under the sequence split: seamless-m4t-medium at full
+# width and depth, fp32, a (1, 3) mesh: 16 KV heads do not divide 3, so
+# the self and cross caches (1536 cells each: min(ENCDEC_SELF_CACHE,
+# max_len) and max_len) are laid by sequence, 512 cells a rank, and the
+# prefill splits the source frames; 4 requests of one 1000-frame source
+# length (rank 1's cross block part live, rank 2's empty), 32 greedy steps
+SHARD_ENCDEC = {"arch": "seamless-m4t-medium", "n_layers": None,
+                "dtype": "float32", "mesh": (1, 3), "max_len": 1536,
+                "batch": 4, "src_len": 1000, "n_decode": 32, "seed": 0}
 SHARD_SEQ_TOL = 1e-4           # x max|logit|: only the merge's order differs
 # kernel 5 at a rank of (a): B 4, S_max 512, 4 of the 8 kv heads, G 4,
 # dh 128, bf16, at the serving shape's lengths
 SHARD_HEADS_FD = ("intellect-1 (a) rank heads", 4, 512, 4, 4, 128,
                   [0, 1, 300, 512])
 SHARD_LSE_TOL = 1e-5
-# the block variant's holds: (label, B, S_blk, Hk, G, dh, lengths, ring):
-# (b)'s rank block at the prompts' lengths (rank 1: cells 512-1023), and
-# h2o-danube-1.8b's decode block (its 8 rows a rank, a 4096-cell window
-# ring split over 'model' = 16), the whole ring merged (ring = 4096)
+# the block variant's holds: (label, B, S, Hk, G, dh, lengths, block,
+# timed): a cache of S cells (one block of S when ``block`` is None, else
+# every block of ``block`` cells held and merged against kernel 5 on the
+# whole cache), block ``timed`` timed. (b)'s rank block at the prompts'
+# lengths (rank 1: cells 512-1023); h2o-danube-1.8b's decode block (its
+# 8 rows a rank, a 4096-cell window ring split over 'model' = 16); (c)'s
+# self cache early in the decode (only rank 0's block live) and its
+# cross cache at the 1000-frame source (rank 1's block part live, rank
+# 2's empty)
 SHARD_FD_CASES = [
-    ("intellect-1 (b) rank 1", 4, 512, 8, 4, 128, [0, 0, 498, 512], None),
+    ("intellect-1 (b) rank 1", 4, 512, 8, 4, 128, [0, 0, 498, 512], None,
+     0),
     ("h2o-danube-1.8b ring", 8, 4096, 8, 4, 80,
-     [1, 200, 4095, 4096, 4097, 5000, 8191, 12345], 256),
+     [1, 200, 4095, 4096, 4097, 5000, 8191, 12345], 256, 1),
+    ("seamless-m4t-medium (c) self", 4, 1536, 16, 1, 64, [1, 2, 17, 33],
+     512, 0),
+    ("seamless-m4t-medium (c) cross", 4, 1536, 16, 1, 64,
+     [1000, 1000, 1000, 1000], 512, 1),
 ]
 # phase 17: sequence parallelism in the hybrid DiLoCo-FSDP train step
 # (``build_train_step`` under ``plan.act_seq_axis``, ``launch.fsdp``):
@@ -620,13 +661,17 @@ def check_repeat_and_close(label, out, again, ref, dtype) -> float:
 def one_kernel_per_call(label, fn) -> dict:
     """torch.profiler over ``calls`` calls of ``fn``: the flash-decode
     kernel is the only device kernel, recorded exactly once a call; its
-    device ms a launch. A trace with no record at all (seen once) is
-    taken again, up to three times."""
+    device ms a launch. A trace that lost records past its lead spins
+    (no record at all, seen once; 6 of 10 flash-decode records, seen
+    once) is taken again, up to three times."""
     from repro_torch.kernels import flash_decode as fd
     calls = 10
     for _ in range(3):
         kernels = device_kernels(fn, calls)
-        if kernels:
+        lost = not kernels or (len(kernels) == 1
+                               and fd.KERNEL_NAME in kernels[0][0]
+                               and kernels[0][1] < calls)
+        if not lost:
             break
     if (len(kernels) != 1 or fd.KERNEL_NAME not in kernels[0][0]
             or kernels[0][1] != calls):
@@ -4020,9 +4065,10 @@ def rl_driver(cfg, root: Path):
 
 
 def rl_reduced_ledgers() -> dict:
-    """The reduced driver (``RL`` on the reduced preset, 3 outer steps)
-    on the card and on the CPU: the same discrete ledger and counts
-    (sampled tokens come from each device's own streams)."""
+    """The reduced driver (``RL_REDUCED``: the reduced preset, 3 outer
+    steps) on the card and on the CPU: the same discrete ledger and
+    counts (sampled tokens come from each device's own streams), with
+    rollouts dropped as stale (the lag window's drop branch ran)."""
     from repro_torch.rl import RLConfig, RLDriver
     out = {}
     for dev in ("cpu", "cuda"):
@@ -4039,6 +4085,10 @@ def rl_reduced_ledgers() -> dict:
         raise AssertionError(f"reduced RL driver GPU vs CPU: {out}")
     if not out["cuda"]["bit_exact"]:
         raise AssertionError("reduced RL driver: an adoption not bit-exact")
+    if out["cuda"]["ledger"]["dropped_stale"] == 0:
+        raise AssertionError(f"reduced RL driver: no rollout dropped as "
+                             f"stale in {RL_REDUCED['outer_steps']} outer "
+                             f"steps: {out['cuda']['ledger']}")
     log(f"reduced RL driver GPU vs CPU: the same ledger and counts "
         f"{json.dumps(out['cuda'])}")
     return out["cuda"]
@@ -4047,7 +4097,7 @@ def rl_reduced_ledgers() -> dict:
 def rl_main_path(root: Path) -> dict:
     """``RLDriver`` on internlm2-1.8b at full width, depth ``RL["n_layers"]``
     (``RL``): 2 DiLoCo slots with the int8 ring, the int8 policy chain,
-    worker 0 continuous, worker 1 paged, adopt strides (1, 3), 3 outer
+    worker 0 continuous, worker 1 paged, adopt strides (1, 3), 2 outer
     steps. Every count is set to 0 just before ``run`` and read after.
     Gates: every adoption's sha the publisher's; the ledger identity;
     lag within the window; versions = outer steps + 1; kernel 5 (6)
@@ -4231,9 +4281,14 @@ def fsdp_config():
                       inner_steps=f["inner_steps"])
 
 
-def start_dryruns(workdir: Path) -> list:
+def start_dryruns() -> tuple:
     """The production dry run's cells and phase 15's (1, 1) trace, each a
-    subprocess on the host (CPU, fake world), started at once."""
+    subprocess on the host (CPU, fake world), started at once at the
+    lowest priority (``nice`` 19), so they use cores the phases leave
+    idle. The script starts them before the build and phase 15 reads
+    them; they are killed and their folder removed when the script
+    exits. Returns (procs, workdir)."""
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
                PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
     f = FSDP
@@ -4245,24 +4300,31 @@ def start_dryruns(workdir: Path) -> list:
                      "single", "--out-dir", str(workdir)])
              for arch in FSDP_DRYRUN]
     procs = []
+    atexit.register(shutil.rmtree, workdir, ignore_errors=True)
+    atexit.register(stop_dryruns, procs)
     for name, args in cmds:
         out = open(workdir / f"{name}.log", "w")
-        procs.append((name, time.perf_counter(), out, subprocess.Popen(
+        proc = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun"] + args,
-            stdout=out, stderr=subprocess.STDOUT, env=env)))
-    return procs
+            stdout=out, stderr=subprocess.STDOUT, env=env)
+        procs.append((name, time.time(), out, proc))
+        os.setpriority(os.PRIO_PROCESS, proc.pid, 19)
+    return procs, workdir
 
 
 def finish_dryruns(procs, workdir: Path) -> dict:
     """Wait for ``start_dryruns``'s subprocesses; each must succeed.
-    Returns the trace's JSON and each cell's printed lines and seconds."""
+    Returns the trace's JSON and each cell's printed lines and seconds
+    (from its start to its log's last write: it ran beside the build and
+    the phases before 15, at the lowest priority)."""
     out = {}
     try:
         for name, t0, log_file, proc in procs:
             rc = proc.wait(timeout=900)
-            secs = time.perf_counter() - t0
             log_file.close()
-            text = (workdir / f"{name}.log").read_text()
+            path = workdir / f"{name}.log"
+            secs = path.stat().st_mtime - t0
+            text = path.read_text()
             if rc != 0:
                 raise AssertionError(f"dry run {name} exited {rc}:\n"
                                      f"{text[-3000:]}")
@@ -4271,12 +4333,18 @@ def finish_dryruns(procs, workdir: Path) -> dict:
             if name == "trace":
                 out[name]["json"] = json.loads(text.strip().splitlines()[-1])
     finally:
-        for _, _, log_file, proc in procs:      # after a failure
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log_file.close()
+        stop_dryruns(procs)
     return out
+
+
+def stop_dryruns(procs) -> None:
+    """Kill whichever of ``start_dryruns``'s subprocesses still runs
+    (after a failure) and close their logs."""
+    for _, _, log_file, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log_file.close()
 
 
 def sharded_codec_rows(n: int) -> dict:
@@ -4400,9 +4468,10 @@ def fsdp_windows(hist, held) -> list:
     return out
 
 
-def fsdp_phase() -> dict:
-    """Phase 15 (``FSDP``). The ranks' codec counts are set to 0 just
-    before the (2, 1) main path and read just after."""
+def fsdp_phase(dryruns: tuple) -> dict:
+    """Phase 15 (``FSDP``); ``dryruns``: ``start_dryruns``'s. The ranks'
+    codec counts are set to 0 just before the (2, 1) main path and read
+    just after."""
     from repro_torch.core import diloco as dl
     from repro_torch.core import ring_reduce as rr
     from repro_torch.core.sync_engine import SyncEngine, from_paths, leaves
@@ -4486,6 +4555,10 @@ def fsdp_phase() -> dict:
                                      f" want codec_calls({k}) = {want}")
         return res
 
+    # the host's dry runs (CPU subprocesses, started before the build)
+    # have ended by now: the (2, 1) path and the (1, 1) step run on an
+    # otherwise idle host
+    dry = finish_dryruns(*dryruns)
     with make_mesh(f["mesh"], ("data", "model"), local_backend="nccl",
                    timeout=600.0) as mesh:
         mesh.call(ts.rank_codec_counts, True)
@@ -4537,13 +4610,6 @@ def fsdp_phase() -> dict:
     if timed["peak_bytes"] >= PEAK_LIMIT_BYTES:
         raise AssertionError(f"fsdp (1, 1) step peak "
                              f"{timed['peak_bytes'] / 2**30:.2f} GiB")
-    # the host's dry runs start only now: the step above is timed on an
-    # otherwise idle host
-    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
-    try:
-        dry = finish_dryruns(start_dryruns(workdir), workdir)
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
     tr = dry["trace"]["json"]["train_step"]
     if tr["memory"]["param_opt_bytes"] != built["param_opt_bytes"]:
         raise AssertionError(f"fsdp: trace param+opt bytes "
@@ -4573,7 +4639,7 @@ def fsdp_phase() -> dict:
         for line in dry[arch]["lines"]:
             log(f"dryrun {line}")
         log(f"dryrun {arch}/train_4k/single: {dry[arch]['wall_s']:.1f}s "
-            f"(subprocess, host CPU)")
+            f"(subprocess, host CPU at nice 19, started beside the build)")
     log(f"fsdp phase: {time.perf_counter() - t_phase:.1f}s")
     return {"launches": launches, "codec": codec, "hop_shape": (1, hop_n),
             "hist": hist, "memory": {"windows": windows,
@@ -4582,18 +4648,19 @@ def fsdp_phase() -> dict:
 
 
 def shard_flash_decode() -> dict:
-    """Phase 16 (c): the block variant at ``SHARD_FD_CASES`` in bf16 and
-    fp32. A ring case holds every one of its blocks (each block's live
-    cells ``attention.block_length``) and the blocks' merge against
-    kernel 5 on the whole ring with its window; the timed block is
-    block 1 (a rank's). Timed beside its byte bound and one call of
+    """Phase 16's holds: the block variant at ``SHARD_FD_CASES`` in bf16
+    and fp32. A case of several blocks holds every one of them (each
+    block's live cells ``attention.block_length``; an empty block's lse
+    -inf and out 0) and the blocks' merge against kernel 5 on the whole
+    cache with its window; block ``timed`` (a rank's) is timed beside
+    its byte bound and one call of
     ``aten._scaled_dot_product_efficient_attention`` with
     ``compute_log_sumexp`` (K/V repeated to Hq, a -inf bias on the dead
     cells, made outside the timing). Returns {label/dtype: entry}."""
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.models.attention import block_length, decode_valid_mask
     out = {}
-    for i, (label, b, s, hk, g, dh, lengths, blk) in \
+    for i, (label, b, s, hk, g, dh, lengths, blk, timed) in \
             enumerate(SHARD_FD_CASES):
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).removeprefix("torch.")
@@ -4635,7 +4702,7 @@ def shard_flash_decode() -> dict:
                     raise AssertionError(f"flash_decode_partial {label} "
                                          f"{dname}: merged blocks vs the "
                                          f"ring kernel {merge_err}")
-            kb, vb, lb = blocks[min(1, len(blocks) - 1)]
+            kb, vb, lb = blocks[timed]
             hq = hk * g
             bound, bound_by = flash_decode_bound(q, kb, lb, None,
                                                  extra_bytes=b * hq * 4)
@@ -4682,10 +4749,18 @@ def shard_flash_decode() -> dict:
 
 def shard_batch(cfg, which: str) -> dict:
     """Phase 16's prompts on the host: (a) the first 4 requests of phase
-    5's trace, (b) random tokens of ``SHARD_SEQ["lengths"]``; right-
-    padded, with their lengths."""
+    5's trace, (b) random tokens of ``SHARD_SEQ["lengths"]``, right-
+    padded, with their lengths; (c) random source frames and BOS
+    tokens."""
     import numpy as np
     from repro_torch.launch import serve
+    if which == "encdec":
+        e = SHARD_ENCDEC
+        gen = torch.Generator().manual_seed(e["seed"])
+        return {"src_embeds": torch.randn((e["batch"], e["src_len"],
+                                           cfg.d_model), generator=gen),
+                "bos": torch.randint(2, cfg.vocab, (e["batch"], 1),
+                                     generator=gen, dtype=torch.int32)}
     if which == "heads":
         args = serve.build_parser().parse_args(SERVE_ARGS)
         prompts = [r.prompt for r in serve.make_requests(args, cfg.vocab)[:4]]
@@ -4711,7 +4786,7 @@ def shard_foil(cfg, batch, max_len: int, n_decode: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     model = get_model(cfg, "cuda")
     params = model.init(ss.SEED)
-    b = batch["tokens"].shape[0]
+    b = next(iter(batch.values())).shape[0]
     cache = model.init_cache(b, ShapeConfig("serve", "decode", max_len, b))
     logits, cache = model.prefill(params, {k: v.cuda()
                                            for k, v in batch.items()}, cache)
@@ -4761,12 +4836,13 @@ def shard_ranks(cfg, mesh_shape, batch, max_len: int, n_decode: int,
     return res
 
 
-def shard_check(label, cfg, foil, res, n_layers: int, kernel: str,
-                bitwise: bool) -> dict:
+def shard_check(label, cfg, foil, res, per_step: int, kernel: str,
+                bitwise: bool, at_prefill: bool = False) -> dict:
     """Phase 16's gates on one layout: tokens equal to the foil's every
     step, logits bitwise (``bitwise``) or within ``SHARD_SEQ_TOL`` x
-    max|logit|, ``kernel`` launched ``n_layers`` times a decode step on
-    every rank (the other variant never), every process's peak summed
+    max|logit|, ``kernel`` launched ``per_step`` times a decode step on
+    every rank (and at the prefill's token with ``at_prefill``: an
+    enc-dec's BOS), the other variant never, every process's peak summed
     under the limit. Returns the numbers the log and the kernels line
     keep."""
     other = ({"flash_decode", "flash_decode_partial"} - {kernel}).pop()
@@ -4788,16 +4864,16 @@ def shard_check(label, cfg, foil, res, n_layers: int, kernel: str,
                 raise AssertionError(f"shard {label} step {i}: logits off by "
                                      f"{rel:.3g} x max|logit|")
         for r, n in enumerate(st["launches"]):
-            want_n = 0 if i == 0 else n_layers
+            want_n = per_step if i or at_prefill else 0
             if n[kernel] != want_n or n[other] != 0:
                 raise AssertionError(f"shard {label} step {i} rank {r}: "
                                      f"launches {n}, want {kernel} {want_n}")
-    n_dec = len(res["steps"]) - 1
+    n_steps = len(res["steps"]) - (0 if at_prefill else 1)
     totals = res["launches"]
     for r, n in enumerate(totals):
-        if n[kernel] != n_dec * n_layers or n[other] != 0:
+        if n[kernel] != n_steps * per_step or n[other] != 0:
             raise AssertionError(f"shard {label} rank {r}: launches {n} in "
-                                 f"the run, want {n_dec * n_layers}")
+                                 f"the run, want {n_steps * per_step}")
     n_ranks = len(totals)
     peaks = [max([res["build"][r]["peak_bytes"]]
                  + [st["peak_bytes"][r] for st in res["steps"]])
@@ -4812,13 +4888,14 @@ def shard_check(label, cfg, foil, res, n_layers: int, kernel: str,
     share = [sum(st["collective_s"][r] for st in dec)
              / sum(st["seconds"][r] for st in dec) for r in range(n_ranks)]
     b = res["build"][0]
-    log(f"shard {label}: {cfg.name} depth {n_layers} {cfg.dtype}, plan "
+    log(f"shard {label}: {cfg.name} depth {cfg.n_layers} {cfg.dtype}, plan "
         f"batch_axes={b['plan']['batch_axes']} seq_axis="
         f"{b['plan']['seq_axis']}; rank bytes: params {b['param_bytes']}, "
         f"cache {b['cache_bytes']}; tokens equal every step, logits "
         + ("bitwise" if bitwise else f"within {worst:.3g} x max|logit|")
-        + f"; {kernel} {n_layers} a decode step on each of {n_ranks} "
-        f"ranks; prefill {[round(x, 3) for x in res['steps'][0]['seconds']]}"
+        + f"; {kernel} {per_step} a decode step on each of {n_ranks} "
+        f"ranks ({totals[0][kernel]} in the run); prefill "
+        f"{[round(x, 3) for x in res['steps'][0]['seconds']]}"
         f" s; decode-step median {[round(x * 1e3, 1) for x in med]} ms, "
         f"'model' collectives {[f'{x:.1%}' for x in share]} of it; peaks "
         f"(GiB, ranks + controller) {[round(p / 2**30, 2) for p in peaks]} + "
@@ -4832,11 +4909,13 @@ def shard_check(label, cfg, foil, res, n_layers: int, kernel: str,
 
 
 def shard_serve_phase() -> dict:
-    """Phase 16: the block variant's holds (c), then (a) the heads layout
-    and (b) the sequence layout, each after its one-device foil."""
+    """Phase 16: the block variant's holds, then (a) the heads layout,
+    (b) the sequence layout and (c) the enc-dec under the sequence
+    split, each after its one-device foil."""
     import dataclasses as dc
 
     from repro_torch.configs import get_config
+    from repro_torch.models.encdec import n_enc_dec
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -4847,7 +4926,9 @@ def shard_serve_phase() -> dict:
     out = {"holds": holds, "heads_kernel": heads[SHARD_HEADS_FD[0]]}
     for which, conf, kernel, bitwise in (
             ("heads", SHARD_HEADS, "flash_decode", True),
-            ("seq", SHARD_SEQ, "flash_decode_partial", False)):
+            ("seq", SHARD_SEQ, "flash_decode_partial", False),
+            ("encdec", SHARD_ENCDEC, "flash_decode_partial", False)):
+        t_case = time.perf_counter()
         cfg = get_config(conf["arch"])
         for key in ("n_layers", "dtype"):
             if conf[key] is not None:
@@ -4857,8 +4938,15 @@ def shard_serve_phase() -> dict:
         res = shard_ranks(cfg, conf["mesh"], batch, conf["max_len"],
                           conf["n_decode"],
                           probe_mb=256 if which == "heads" else None)
-        out[which] = shard_check(which, cfg, foil, res, cfg.n_layers,
-                                 kernel, bitwise)
+        # an enc-dec decoder layer attends twice (self, cross), its BOS
+        # token in the prefill
+        encdec = cfg.family == "encdec"
+        per_step = 2 * n_enc_dec(cfg)[1] if encdec else cfg.n_layers
+        out[which] = shard_check(which, cfg, foil, res, per_step, kernel,
+                                 bitwise, at_prefill=encdec)
+        out[which]["wall_s"] = time.perf_counter() - t_case
+        log(f"shard {which}: the case (foil, ranks, gates) "
+            f"{out[which]['wall_s']:.1f}s")
         out[which]["transport_probe"] = res["probe"]
         del foil, res
         gc.collect()
@@ -5230,9 +5318,15 @@ def main(argv=None) -> None:
                          "result")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
+    only = (args.dist_slots is not None or args.swarm_only or args.moe_only
+            or args.ssm_only or args.encdec_only or args.rl_only
+            or args.fsdp_only or args.shard_serve_only or args.sp_train_only)
     torch.backends.cuda.matmul.allow_tf32 = False     # fp32 stays fp32
     torch.backends.cudnn.allow_tf32 = False
     smi = environment()
+    # phase 15's host dry runs start now, beside the build, at the lowest
+    # priority
+    dryruns = start_dryruns() if args.fsdp_only or not only else None
     build()
     if args.dist_slots is not None:
         DIST["slots"] = args.dist_slots
@@ -5261,7 +5355,7 @@ def main(argv=None) -> None:
         log(f"phase 14 alone passed in {time.perf_counter() - t0:.1f}s")
         return
     if args.fsdp_only:
-        fsdp_phase()
+        fsdp_phase(dryruns)
         log(f"phase 15 alone passed in {time.perf_counter() - t0:.1f}s")
         return
     if args.shard_serve_only:
@@ -5391,7 +5485,7 @@ def main(argv=None) -> None:
     del rl
     gc.collect()
     torch.cuda.empty_cache()
-    fs = fsdp_phase()
+    fs = fsdp_phase(dryruns)
     for entry in kernels[1:5]:
         c = fs["codec"][entry["name"]]
         entry.update(launches_sharded=fs["launches"][entry["name"]],
@@ -5408,7 +5502,8 @@ def main(argv=None) -> None:
     timed = sh["holds"][f"{SHARD_FD_CASES[0][0]} float32"]
     kernels[0].update(
         launches_shard_serve={"heads": sh["heads"]["launches"],
-                              "seq_partial": sh["seq"]["launches"]},
+                              "seq_partial": sh["seq"]["launches"],
+                              "encdec_partial": sh["encdec"]["launches"]},
         partial_ms=timed["ms"], partial_plain_ms=timed["plain_ms"],
         partial_bound_ms=timed["bound_ms"],
         partial_bound_by=timed["bound_by"],
@@ -5419,7 +5514,8 @@ def main(argv=None) -> None:
         heads_rank=sh["heads_kernel"],
         shard_serve={k: {x: sh[k][x] for x in (
             "decode_median_ms", "collective_share", "summed_peak_bytes",
-            "max_rel_logit_err")} for k in ("heads", "seq")})
+            "max_rel_logit_err", "wall_s")} for k in ("heads", "seq",
+                                                      "encdec")})
     del sh
     gc.collect()
     torch.cuda.empty_cache()

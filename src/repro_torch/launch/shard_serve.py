@@ -174,12 +174,13 @@ def rank_launches(ctx, reset: bool = False) -> dict:
 
 def rank_cache(ctx) -> object:
     """This rank's cache blocks on the host, every KV leaf a plain
-    ``KVCache``."""
-    from repro_torch.models.attention import KVCache
+    ``KVCache`` (an enc-dec's ``cross_layout`` left out)."""
+    from repro_torch.models.attention import KVCache, KVLayout
 
     def host(t):
         if isinstance(t, dict):
-            return {k: host(v) for k, v in t.items()}
+            return {k: host(v) for k, v in t.items()
+                    if not isinstance(v, KVLayout)}
         if isinstance(t, list):
             return [host(v) for v in t]
         if isinstance(t, KVCache):

@@ -9,8 +9,8 @@ hand in a fresh one (see ``serving.engine``), and a paged cache's pool
 is shared by every slot, so its writes land where the slot's table
 says (``serving.paging`` keeps the tables). A ``ShardedKVCache`` is one
 rank's block of a cache laid over ranks by heads or by sequence (the
-sharded serve step): its writes and decode attention do that rank's
-part and gather the rest.
+sharded serve step, its ``KVLayout``): its writes and decode attention
+do that rank's part and gather the rest.
 """
 from __future__ import annotations
 
@@ -46,11 +46,10 @@ class KVCache:
                                    length=self.length[i])
 
 
-@dataclasses.dataclass
-class ShardedKVCache(KVCache):
-    """One rank's block of a KV cache laid over the 'model' axis
-    (``train.step.build_serve_step``): k/v hold the block, ``length``
-    the slots' global lengths (every rank keeps them). One layout:
+@dataclasses.dataclass(frozen=True)
+class KVLayout:
+    """Which block of a KV cache laid over the 'model' axis a rank holds
+    (``train.step.local_cache``). One of:
 
       * ``heads = (lo, hi, n)``: kv heads [lo, hi) of n. Decode runs the
         flash-decode kernel at this rank's heads (query heads [lo G,
@@ -62,28 +61,52 @@ class ShardedKVCache(KVCache):
         wider than its window) and merges the blocks' partials.
 
     ``all_gather(t)`` is the group's forward all-gather (a list in rank
-    order). ``layer(i)`` keeps the layout."""
+    order). A cache tree that keeps a cache's tensors apart (an
+    enc-dec's ``cross_k`` / ``cross_v``, read with ``src_len``) keeps
+    its layout beside them."""
     heads: tuple | None = None
     seq: tuple | None = None
     all_gather: Callable | None = None
 
+    def own_heads(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (..., Hk, dh) cut to this block's kv heads (all of them
+        when laid by sequence)."""
+        if self.heads is None:
+            return t
+        return t[..., self.heads[0]:self.heads[1], :]
+
+    def view(self, k: torch.Tensor, v: torch.Tensor,
+             length: torch.Tensor) -> "ShardedKVCache":
+        """The block (k, v) with the slots' global ``length``."""
+        return ShardedKVCache(k, v, length, self)
+
+
+@dataclasses.dataclass
+class ShardedKVCache(KVCache):
+    """One rank's block of a KV cache laid over the 'model' axis
+    (``train.step.build_serve_step``), as its ``layout`` says: k/v hold
+    the block, ``length`` the slots' global lengths (every rank keeps
+    them). Its writes and decode attention do the rank's part and
+    gather the rest. ``layer(i)`` keeps the layout."""
+    layout: KVLayout
+
     def own(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's block of ``t`` laid out as the whole cache
         (..., S, Hk, dh)."""
-        if self.heads is not None:
-            return t[..., self.heads[0]:self.heads[1], :]
-        off = self.seq[0]
+        if self.layout.seq is None:
+            return self.layout.own_heads(t)
+        off = self.layout.seq[0]
         return t[..., off:off + self.k.shape[-3], :, :]
 
     def write(self, fn, k_new: torch.Tensor, v_new: torch.Tensor) -> None:
         """``fn(cache, k, v)``, a write into a dense cache, on this block:
         heads laid, the block and the rank's heads of k/v; seq laid, a
         whole-cache copy holding this block, cut back after."""
-        if self.heads is not None:
+        if self.layout.seq is None:
             fn(KVCache(self.k, self.v, self.length), self.own(k_new),
                self.own(v_new))
             return
-        shape = (tuple(self.k.shape[:-3]) + (self.seq[1],)
+        shape = (tuple(self.k.shape[:-3]) + (self.layout.seq[1],)
                  + tuple(self.k.shape[-2:]))
         full = KVCache(self.k.new_zeros(shape), self.v.new_zeros(shape),
                        self.length)
@@ -98,7 +121,7 @@ class ShardedKVCache(KVCache):
         dense ``cache_update``'s cell (the ring cursor, or the length
         clamped to the last cell), written only where this block holds
         it; every rank advances the lengths."""
-        off, s_ring = self.seq
+        off, s_ring = self.layout.seq
         blk = self.k.shape[-3]
         cell = self.length % s_ring if rolling else self.length
         loc = cell.clamp(0, s_ring - 1).long() - off
@@ -112,19 +135,20 @@ class ShardedKVCache(KVCache):
 
     def attend(self, q: torch.Tensor, window: int | None) -> torch.Tensor:
         from repro_torch.kernels import flash_decode
-        if self.heads is not None:
-            lo, hi, n = self.heads
+        lay = self.layout
+        if lay.seq is None:
+            lo, hi, n = lay.heads
             g = q.shape[2] // n
             o = flash_decode.flash_decode(
                 q[:, :, lo * g:hi * g].contiguous(), self.k, self.v,
                 self.length, window=window)
-            return torch.cat(self.all_gather(o), dim=2)
-        off, s_ring = self.seq
+            return torch.cat(lay.all_gather(o), dim=2)
+        off, s_ring = lay.seq
         out, lse = flash_decode.flash_decode_partial(
             q, self.k, self.v,
             block_length(self.length, off, self.k.shape[-3], s_ring))
-        return flash_decode.merge_partials(self.all_gather(out),
-                                           self.all_gather(lse))
+        return flash_decode.merge_partials(lay.all_gather(out),
+                                           lay.all_gather(lse))
 
 
 def block_length(length: torch.Tensor, off: int, s_blk: int,
@@ -136,14 +160,6 @@ def block_length(length: torch.Tensor, off: int, s_blk: int,
     never wider than its window, so its live cells are exactly the
     cells below min(length, s_ring)."""
     return (length.clamp(max=s_ring) - off).clamp(0, s_blk).to(torch.int32)
-
-
-def local_heads(cache, t: torch.Tensor) -> torch.Tensor:
-    """``t`` (..., Hk, dh) cut to the kv heads ``cache`` holds (a
-    heads-laid ``ShardedKVCache``), else ``t``."""
-    if isinstance(cache, ShardedKVCache) and cache.heads is not None:
-        return cache.own(t)
-    return t
 
 
 @dataclasses.dataclass
@@ -365,7 +381,7 @@ def cache_update(cache: KVCache | PagedKVCache, k_new: torch.Tensor,
     if isinstance(cache, PagedKVCache):
         return paged_cache_update(cache, k_new, v_new, rolling=rolling)
     if isinstance(cache, ShardedKVCache):
-        if cache.seq is not None and k_new.shape[1] == 1:
+        if cache.layout.seq is not None and k_new.shape[1] == 1:
             cache.update_token(k_new, v_new, rolling)
         else:
             cache.write(lambda c, k, v: cache_update(c, k, v,

@@ -17,8 +17,6 @@ against the cross cache as a ``KVCache(cross_k, cross_v, src_len)``.
 """
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from repro_torch.models import attention as attn
@@ -293,26 +291,44 @@ def prefill(cfg, params, src_embeds, bos_token, cache, *, fetch=None):
     (fresh) cache in place, then run the BOS token (B, 1) -> (logits
     (B, V), cache). The source may be shorter than the cache's cross
     capacity: ``src_len`` masks the rest. ``fetch`` maps each layer's
-    weights (and the top-level ones) before use; a heads-laid sharded
-    self cache (``attention.ShardedKVCache``) takes the cross cache's
-    heads as its own."""
+    weights (and the top-level ones) before use.
+
+    A sharded cache (``train.step.local_cache``) holds the cross K/V as
+    its ``cross_layout`` says: by heads, the rank's heads of every
+    cell; by sequence, its cells [off, off + S_blk) of the capacity,
+    those below the source's length projected (none on a rank whose
+    cells all lie past it). Under an ``act_hints.SeqSplit`` (the serve
+    step's prefill when the KV heads do not divide 'model') the rank
+    encodes its source positions (``even_bounds``, which need not be
+    its cells) and the memory is gathered once, forward only; the BOS
+    token runs whole on every rank."""
     params = common.fetch_top(params, fetch)
-    memory = encode(cfg, params, src_embeds, fetch=fetch)
+    split = act_hints.seq_split()
+    src_split = None if split is None else split.over(src_embeds.shape[1])
+    memory = encode(cfg, params, src_embeds, fetch=fetch, split=src_split)
+    if src_split is not None:
+        memory = src_split.gather_seq(memory)
     hd = _hd(cfg)
     b, sl, _ = memory.shape
-    cap = cache["cross_k"].shape[2]
+    lay = cache.get("cross_layout")
+    blk = cache["cross_k"].shape[2]
+    off, cap = (lay.seq if lay is not None and lay.seq is not None
+                else (0, blk))
     if sl > cap:
         raise ValueError(f"encdec prefill: source of {sl} frames vs cross "
                          f"cache capacity {cap}")
+    lo, hi = min(off, sl), min(off + blk, sl)     # this block's live cells
+    mem = memory[:, lo:hi]
     _, n_dec = n_enc_dec(cfg)
     for i in range(n_dec):
         p = common.tree_index(params["dec"], i)["cross"]
         if fetch is not None:
             p = fetch({"wk": p["wk"], "wv": p["wv"]}, ("cross",))
         for name in ("k", "v"):
-            kv = (memory @ p["w" + name]).reshape(b, sl, cfg.n_kv_heads, hd)
-            cache["cross_" + name][i, :, :sl] = attn.local_heads(
-                cache["self"], kv)
+            kv = (mem @ p["w" + name]).reshape(b, hi - lo, cfg.n_kv_heads,
+                                               hd)
+            cache["cross_" + name][i, :, lo - off:hi - off] = (
+                kv if lay is None else lay.own_heads(kv))
     cache["src_len"].fill_(sl)
     return _decode(cfg, params, bos_token, cache, fetch)
 
@@ -327,12 +343,15 @@ def decode_step(cfg, params, token, cache, *, fetch=None):
 
 def _decode(cfg, params, token, cache, fetch):
     """``decode_step`` with the top-level weights already fetched. The
-    cross cache is read as the self cache's kind (its layout on a
-    sharded cache) over (cross_k, cross_v, src_len)."""
+    cross cache is a ``KVCache`` over (cross_k, cross_v, src_len), laid
+    out as the tree's ``cross_layout`` says on a sharded cache: by
+    sequence, its own cells of its own capacity, which is not the self
+    cache's (min(ENCDEC_SELF_CACHE, seq_len) cells against seq_len)."""
     x = common.embedding_lookup(params["embed"], token)
     b = x.shape[0]
     hd = _hd(cfg)
     pos = cache["self"].length[0][:, None].clone()
+    lay = cache.get("cross_layout")
     _, n_dec = n_enc_dec(cfg)
     for i in range(n_dec):
         p = common.fetched(common.tree_index(params["dec"], i), fetch)
@@ -349,9 +368,9 @@ def _decode(cfg, params, token, cache, fetch):
         x = x + o.reshape(b, 1, -1) @ ps["wo"]
         h = common.rms_norm(x, p["ln_cross"], cfg.norm_eps)
         q = (h @ pc["wq"]).reshape(b, 1, cfg.n_heads, hd)
-        cross = dataclasses.replace(sc, k=cache["cross_k"][i],
-                                    v=cache["cross_v"][i],
-                                    length=cache["src_len"])
+        ck, cv = cache["cross_k"][i], cache["cross_v"][i]
+        cross = (attn.KVCache(ck, cv, cache["src_len"]) if lay is None
+                 else lay.view(ck, cv, cache["src_len"]))
         o = attn.decode_attention(q, cross)
         x = x + o.reshape(b, 1, -1) @ pc["wo"]
         x = x + _mlp(cfg, p, x)

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import common, ssm
+from repro_torch.sharding import act_hints
 
 
 def ssm_cfg(cfg) -> ssm.SSMConfig:
@@ -199,12 +200,16 @@ def forward(cfg, params, tokens, *, collect_state=False, prompt_len=None,
 
 def loss_fn(cfg, params, batch, *, remat=False, fetch=None):
     """(loss, metrics) of one batch {"tokens", "targets", "mask"};
-    ``remat`` / ``fetch``: see ``forward``."""
+    ``remat`` / ``fetch``: see ``forward``. Under an
+    ``act_hints.LossSplit`` (the FSDP step's rows split over a worker's
+    ranks: each row's scan is whole) the loss and metrics are this
+    rank's terms of the worker's."""
     logits, _ = forward(cfg, params, batch["tokens"], remat=remat,
                         fetch=fetch)
     return common.cross_entropy_max_z(logits, batch["targets"],
                                       batch.get("mask"),
-                                      z_weight=cfg.max_z_weight)
+                                      z_weight=cfg.max_z_weight,
+                                      split=act_hints.loss_split())
 
 
 # -- serving ------------------------------------------------------------------

@@ -761,14 +761,14 @@ def _flat(sub):
     return sub._flatten() if sub.ndim > 1 else sub
 
 
-def _mean_over(t: torch.Tensor, sub, n: int) -> torch.Tensor:
-    """Mean of ``t`` over the ranks of ``sub`` (one flat mesh dim; a
-    sum, then / n: gloo has no average)."""
-    if sub is None or n == 1:
+def _sum_over(t: torch.Tensor, sub) -> torch.Tensor:
+    """Sum of ``t`` over the ranks of ``sub`` (one flat mesh dim, or
+    None), forward only."""
+    if sub is None or sub.size() == 1:
         return t
     from torch.distributed.tensor import DTensor, Partial, Replicate
     tot = DTensor.from_local(t, sub, (Partial(),), run_check=False)
-    return _wait(tot.redistribute(sub, (Replicate(),)).to_local()) / n
+    return _wait(tot.redistribute(sub, (Replicate(),)).to_local())
 
 
 def local_train_state(model, plan, mesh, params=None):
@@ -892,21 +892,30 @@ def build_train_step(model, plan, mesh, optimizer: AdamW):
     the rank takes its rows over ``plan.batch_axes``.
     ``train_step(state, batch) -> (state, metrics)`` updates the state
     in place (the reference donates it) and returns the loss's metrics,
-    averaged over the worker's ranks.
+    the worker's.
 
     Each rank computes the loss of its batch slice with every layer's
     weights gathered over the worker's mesh dims (``_Gather``; ``remat``
-    per layer as the plan says); the gradients come back summed over
-    the worker's ranks and are divided by their count, so a worker
-    takes the mean over its batch shards (ranks that share a slice
-    count it as often as they share it). A token-choice MoE layer
-    routes over the worker's whole (micro)batch, as the reference's one
-    program does (``act_hints.BatchSplit``, ``models.moe``).
+    per layer as the plan says), and its loss is its rows' masked sum
+    over the mask sum of the worker's (micro)batch
+    (``act_hints.LossSplit``: one scalar all-reduced), so the ranks'
+    losses add up to the reference's one loss under any mask: the
+    gradients come back summed over the worker's ranks and are not
+    divided, and the metrics are the ranks' terms summed. Ranks that
+    share a slice count it as often in the mask sum as in the summed
+    gradient. A token-choice MoE layer routes over the worker's whole
+    (micro)batch, as the reference's one program does
+    (``act_hints.BatchSplit``, ``models.moe``); its ``lb_loss`` and
+    ``dropped_frac`` enter each rank's terms divided by the rank count.
     ``plan.microbatches`` accumulates in fp32 (metrics from the last
     microbatch); microbatch i is rows [i B / n, (i + 1) B / n) of the
     worker's batch, as in the reference, cut over the batch axes. When
     that cut does not divide (dbrx-132b single-pod: one row a rank), the
-    rank splits its own rows into as many microbatches as divide them.
+    rank splits its own rows into as many microbatches as divide them:
+    each rank's rows are then its own microbatches, its loss their mean,
+    and the reference's mean over microbatches is the ranks' mean (the
+    gradients summed and divided by the rank count, the metrics
+    averaged).
     AdamW runs on the local shards.
 
     Sequence parallelism (``plan.act_seq_axis`` of more than one rank;
@@ -914,13 +923,10 @@ def build_train_step(model, plan, mesh, optimizer: AdamW):
     each rank runs its rows' positions [lo, hi) of every microbatch
     (``act_hints.SeqSplit``, even bounds; the models gather K/V and an
     MoE's routing over the worker with summing backwards), and its loss
-    is its tokens' masked sum over the mask sum of the worker's
-    (micro)batch (``act_hints.LossSplit``), so the ranks' losses add up
-    to the reference's one loss: the gradients are summed over the
-    worker's ranks and not divided, and the metrics are the worker's
-    (the ranks' terms summed). The weights move through ``_ListGather``
-    (card mailboxes where the ranks share a card). Microbatches must
-    be the reference's rows cut over the batch axes."""
+    is its tokens' share of the worker's, as above. The weights move
+    through ``_ListGather`` (card mailboxes where the ranks share a
+    card). Microbatches must be the reference's rows cut over the batch
+    axes."""
     from repro_torch.sharding import act_hints
     from repro_torch.train.state import TrainState
     amap = mesh_axes(mesh)
@@ -951,8 +957,10 @@ def build_train_step(model, plan, mesh, optimizer: AdamW):
         hint = None
     else:
         fetch = _make_fetch(model, pspecs, sub, flat)
-        split = _batch_split(mesh, entry, _coords(mesh))
-        hint = act_hints.Hint(batch=split) if split is not None else None
+        hint = act_hints.Hint(
+            batch=_batch_split(mesh, entry, _coords(mesh)),
+            loss=act_hints.LossSplit(n_ranks, lambda t: _sum_over(t, flat))
+            if n_ranks > 1 else None)
     lead = lambda t: partition.with_leading(t, dax)
     state_specs = TrainState(lead(pspecs), AdamWState(
         (dax,) if dax else (), lead(pspecs), lead(pspecs)))
@@ -980,7 +988,7 @@ def build_train_step(model, plan, mesh, optimizer: AdamW):
         return [{k: v[i * rows // nmb:(i + 1) * rows // nmb]
                  for k, v in local.items()} for i in range(nmb)], False
 
-    def grads_of(params, mbs):
+    def grads_of(params, mbs, summed: bool):
         nmb = len(mbs)
         req = tree_map(lambda p: p.detach().requires_grad_(), params)
         ws = leaves(req)
@@ -998,8 +1006,9 @@ def build_train_step(model, plan, mesh, optimizer: AdamW):
             else:
                 for a, g in zip(acc, gs):
                     a.add_(g.float())
-        # sequence parallel: the ranks' losses add up to the worker's
-        scale = nmb if sp_on else nmb * n_ranks
+        # the ranks' losses add up to the worker's, or (the fallback)
+        # each is a mean of its own microbatches
+        scale = nmb if summed else nmb * n_ranks
         grads = [g / scale if scale > 1 else g for g in acc]
         return grads, {k: v.detach() for k, v in metrics.items()}
 
@@ -1019,11 +1028,12 @@ def build_train_step(model, plan, mesh, optimizer: AdamW):
                     f"over the batch axes' {n_shards} ranks")
             use = sp_hint(next(iter(mbs[0].values())).shape[0])
         else:
-            # routing over the whole batch holds only for microbatches
-            # of the reference's rows; the fallback routes each rank's own
+            # the whole batch's routing and loss hold only for
+            # microbatches of the reference's rows; the fallback routes
+            # and scores each rank's own
             use = hint if aligned else None
         with act_hints.activation_hints(use):
-            grads, metrics = grads_of(params, mbs)
+            grads, metrics = grads_of(params, mbs, aligned)
         paths = [p for p, _ in leaves_with_paths(params)]
         optimizer.update_(from_paths(paths, grads), opt, params)
         keys = sorted(metrics)
@@ -1031,7 +1041,9 @@ def build_train_step(model, plan, mesh, optimizer: AdamW):
         if sp_on:
             vals = rank_mesh.all_reduce_sum(vals, wgroup)
         else:
-            vals = _mean_over(vals, flat, n_ranks)
+            vals = _sum_over(vals, flat)
+            if not aligned:
+                vals = vals / n_ranks
         return state, dict(zip(keys, vals.unbind()))
 
     return step, state_specs
@@ -1205,8 +1217,11 @@ def local_cache(model, plan, mesh, batch_size: int, shape):
     leaf laid out by ``model.cache_pspecs``, as zeros. A KV cache laid
     over 'model' becomes an ``attention.ShardedKVCache`` carrying its
     layout (kv heads [lo, hi) of n, or cells [off, off + S_blk) of S)
-    and the group's gather; lengths stay whole. Collective (it makes the
-    'model' group's transport): every rank calls it."""
+    and the group's gather; an enc-dec's cross K/V laid over 'model'
+    stay tensors and their own layout (its capacity the cross cache's)
+    is the tree's ``cross_layout`` (an ``attention.KVLayout``); lengths
+    stay whole. Collective (it makes the 'model' group's transport):
+    every rank calls it."""
     from repro_torch.models import attention as attn
     amap, coords = mesh_axes(mesh), _coords(mesh)
     meta = model.init_cache(batch_size, shape, device="meta")
@@ -1218,27 +1233,38 @@ def local_cache(model, plan, mesh, batch_size: int, shape):
         return torch.zeros(partition.local_shape(t.shape, spec, amap),
                            dtype=t.dtype, device=model.device)
 
+    def layout(spec, whole):
+        """The ``KVLayout`` of a (..., S, Hk, dh) tensor laid out as
+        ``spec`` (None unless laid over 'model')."""
+        ks = tuple(spec) + (None,) * (whole.dim() - len(spec))
+        if ks[-2] == "model":
+            n = whole.shape[-2] // amap["model"]
+            return attn.KVLayout(heads=(m * n, (m + 1) * n, whole.shape[-2]),
+                                 all_gather=gather)
+        if ks[-3] == "model":
+            n = whole.shape[-3] // amap["model"]
+            return attn.KVLayout(seq=(m * n, whole.shape[-3]),
+                                 all_gather=gather)
+        return None
+
     def walk(t, spec):
         if t is None:
             return None
         if isinstance(t, dict):
-            return {k: walk(t[k], spec[k]) for k in t}
+            out = {k: walk(t[k], spec[k]) for k in t}
+            if "cross_k" in t:
+                lay = layout(spec["cross_k"], t["cross_k"])
+                if lay is not None:
+                    out["cross_layout"] = lay
+            return out
         if isinstance(t, list):
             return [walk(a, b) for a, b in zip(t, spec)]
         if isinstance(t, attn.KVCache):
             k, v = block(spec.k, t.k), block(spec.v, t.v)
             length = block(spec.length, t.length)
-            ks = tuple(spec.k) + (None,) * (t.k.dim() - len(spec.k))
-            if ks[-2] == "model":
-                return attn.ShardedKVCache(
-                    k, v, length, heads=(m * k.shape[-2],
-                                         (m + 1) * k.shape[-2],
-                                         t.k.shape[-2]), all_gather=gather)
-            if ks[-3] == "model":
-                return attn.ShardedKVCache(
-                    k, v, length, seq=(m * k.shape[-3], t.k.shape[-3]),
-                    all_gather=gather)
-            return attn.KVCache(k, v, length)
+            lay = layout(spec.k, t.k)
+            return (attn.KVCache(k, v, length) if lay is None
+                    else lay.view(k, v, length))
         if isinstance(t, tuple):
             return type(t)(*(walk(a, b) for a, b in zip(t, spec)))
         return block(spec, t)
@@ -1344,11 +1370,11 @@ def build_serve_step(model, plan, mesh, kind: str):
     The prefill shards the sequence over 'model' when the KV heads do
     not divide that axis (the reference's ``act_hints`` SP hint, not for
     the SSM and hybrid families): each rank runs the residual stream of
-    its positions (``act_hints.SeqSplit``, ``models.transformer``). An
-    enc-dec under that split raises ``ValueError``: its encoder, cross
-    attention and cache under a sequence split are not ported yet
-    (ROADMAP §1, slice 13), so an enc-dec serves with its heads over
-    'model'."""
+    its positions (``act_hints.SeqSplit``, ``models.transformer``); an
+    enc-dec's split is laid over its source frames (the encoder, whose
+    memory is gathered once for the cross K/V of the rank's cells,
+    ``models.encdec.prefill``), and its BOS token, as every decode
+    step, runs whole on every rank."""
     from repro_torch.sharding import act_hints
     if kind not in ("prefill", "decode"):
         raise ValueError(f"serve step kind {kind!r}")
@@ -1358,11 +1384,6 @@ def build_serve_step(model, plan, mesh, kind: str):
     n_model = amap.get("model", 1)
     split = (n_model > 1 and cfg.n_kv_heads % n_model != 0
              and cfg.family not in ("ssm", "hybrid"))
-    if split and cfg.family == "encdec":
-        raise ValueError(
-            f"{cfg.name}: enc-dec with {cfg.n_kv_heads} KV heads on a "
-            f"'model' axis of {n_model} needs a sequence split, not "
-            "ported yet (ROADMAP §1, slice 13)")
     coords = _coords(mesh)
     fetch = _serve_fetch(model, pspecs, mesh)
     gather_m = _model_gather(mesh, model.device)
@@ -1390,8 +1411,10 @@ def build_serve_step(model, plan, mesh, kind: str):
         else:
             local = {k: cut(v) for k, v in inputs.items()}
             if split:
-                s = local["tokens"].shape[1] + (
-                    local["frontend"].shape[1] if "frontend" in local else 0)
+                # the prompt's positions (a VLM's frontend first); an
+                # enc-dec lays the split over its source frames itself
+                s = sum(local[k].shape[1] for k in ("frontend", "tokens")
+                        if k in local)
                 hint = act_hints.Hint(seq=act_hints.SeqSplit(
                     coords["model"], act_hints.even_bounds(s, n_model),
                     gather_m))

@@ -4,7 +4,6 @@ imports no JAX, so the rank processes stay light."""
 import torch
 
 from repro_torch.launch import shard_serve as ss
-from repro_torch.sharding.plans import make_plan
 from repro_torch.train import step as ts
 
 
@@ -30,18 +29,3 @@ def serve(ctx, cfg, params, batch, n_decode, max_len):
     return {"logits": logits, "tokens": tokens, "cache": cache,
             "plan": build["plan"]}
 
-
-def encdec_split_raises(ctx, cfg):
-    """Whether ``build_serve_step`` refuses an enc-dec prefill whose KV
-    heads do not divide 'model'."""
-    mesh = ctx.device_mesh(None, "gloo")
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.models.registry import get_model
-    model = get_model(cfg, ctx.device)
-    plan = make_plan(cfg, ShapeConfig("s", "prefill", 16, 4),
-                     ts.mesh_axes(mesh))
-    try:
-        ts.build_serve_step(model, plan, mesh, "prefill")
-    except ValueError as e:
-        return "slice 13" in str(e)
-    return False

@@ -10,9 +10,13 @@ every parameter's gradient, the prefill's logits and every cache leaf
 reference's decode attention is the Pallas kernel in interpret mode, the
 port's the kernel's plain version). Greedy tokens are held exactly. The
 engines and ``launch.serve`` refuse the family with ``ValueError``;
-``GRPOModel`` refuses it with ``TypeError``, as repro's does."""
+``GRPOModel`` refuses it with ``TypeError``, as repro's does. A decode
+over sequence-laid blocks of the self and cross caches (each of its own
+capacity; ranks as threads) merges to the whole cache's within 1e-5."""
 import dataclasses
+import threading
 import types
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -247,6 +251,72 @@ def test_decoder_logits_teacher_forcing_match_decode(pair):
                                       torch.cat(toks, 1))
     for j, lg in enumerate(steps):
         _close(lg, full[:, j].numpy())
+
+
+def _thread_gathers(n: int) -> list:
+    """The all-gather of n threads, one callable a thread: each returns
+    the list of every thread's tensor in thread order."""
+    slots = [None] * n
+    barrier = threading.Barrier(n, timeout=60)
+
+    def make(r):
+        def gather(t):
+            slots[r] = t
+            barrier.wait()
+            out = list(slots)
+            barrier.wait()
+            return out
+        return gather
+    return [make(r) for r in range(n)]
+
+
+def test_sequence_laid_blocks_decode_as_the_whole_cache(pair):
+    """``decode_step`` on 3 ranks' blocks of one prefilled cache (ranks
+    as threads, the merge's gather between them): the self cache of 12
+    cells in blocks of 4 and the cross cache of ANOTHER capacity, 24
+    cells in blocks of 8 (its layout the tree's ``cross_layout``, not
+    the self cache's), a 9-frame source, so rank 2's cross block is
+    empty every step and ranks 1-2's self blocks are empty at the first
+    step. 6 steps (the self cache crosses a block boundary): every
+    rank's logits finite and within 1e-5 of the whole cache's decode,
+    and so are the self blocks of the whole cache's cells."""
+    cfg, model, params = pair.cfg, pair.model, pair.params
+    n, s_self, s_cross, sl = 3, 12, 24, 9
+    whole = tencdec.init_cache(cfg, B, s_self, s_cross, device="cpu")
+    logits, whole = model.prefill(
+        params, {"src_embeds": torch.from_numpy(_src(cfg, B, sl, 5)),
+                 "bos": torch.ones((B, 1), dtype=torch.int32)}, whole)
+    gathers = _thread_gathers(n)
+    sb, cb = s_self // n, s_cross // n
+
+    def block(r):
+        sc = whole["self"]
+        cut = lambda t, w: t[:, :, r * w:(r + 1) * w].clone()
+        return {"self": tattn.KVLayout(
+                    seq=(r * sb, s_self), all_gather=gathers[r]).view(
+                    cut(sc.k, sb), cut(sc.v, sb), sc.length.clone()),
+                "cross_k": cut(whole["cross_k"], cb),
+                "cross_v": cut(whole["cross_v"], cb),
+                "src_len": whole["src_len"].clone(),
+                "cross_layout": tattn.KVLayout(seq=(r * cb, s_cross),
+                                               all_gather=gathers[r])}
+    caches = [block(r) for r in range(n)]
+    assert (tattn.block_length(whole["src_len"], 2 * cb, cb, s_cross)
+            == 0).all()
+    tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+    with ThreadPoolExecutor(n) as pool:
+        for step in range(6):
+            want, whole = model.decode(params, tok, whole)
+            got = list(pool.map(
+                lambda r: model.decode(params, tok, caches[r])[0],
+                range(n)))
+            for r, lg in enumerate(got):
+                assert torch.isfinite(lg).all(), (step, r)
+                _close(lg, want.numpy(), tol=1e-5)
+            tok = want.argmax(-1, keepdim=True).to(torch.int32)
+    for name in ("k", "v"):
+        _close(torch.cat([getattr(c["self"], name) for c in caches], dim=2),
+               getattr(whole["self"], name).numpy(), tol=1e-5)
 
 
 def test_registry_cache_shapes():

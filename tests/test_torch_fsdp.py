@@ -9,6 +9,10 @@ reference's ``tests/test_distributed.py``):
     same 8 losses per worker as ``repro``'s unsharded per-worker step
     (value_and_grad and AdamW, vmapped over the workers) within 1e-4,
     and as the port's unsharded step within 1e-5;
+  * under a random 0/1 mask (some rows all zero) the row-only step's
+    losses equal ``repro``'s within 1e-4 at every step (internlm2-1.8b
+    with 1 and 2 microbatches, mamba2-130m): a rank's loss is its share
+    of the worker's one masked mean (``act_hints.LossSplit``);
   * the forced-TP plan shards the parameters: every rank's local shapes
     are ``local_shape`` of ``repro``'s spec, and its losses the
     unsharded step's within 1e-5; so are a 2-D FSDP plan's (no DiLoCo,
@@ -34,6 +38,7 @@ reference's ``tests/test_distributed.py``):
     one of its microbatches, and reports the ranks' mean.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -93,11 +98,17 @@ def _ref_params(arch):
     return params, from_jax_params(jax.tree.map(np.asarray, params), "cpu")
 
 
-def _batch(cfg, lead, seed=1, seq=32):
+def _batch(cfg, lead, seed=1, seq=32, zero_rows=None):
+    """Random tokens; the mask all ones or, with ``zero_rows`` (indices
+    into ``lead``), random 0/1 with those rows all zero."""
     rng = np.random.default_rng(seed)
     tok = rng.integers(0, cfg.vocab, lead + (seq + 1,)).astype(np.int32)
-    return {"tokens": tok[..., :-1], "targets": tok[..., 1:],
-            "mask": np.ones(lead + (seq,), np.float32)}
+    mask = np.ones(lead + (seq,), np.float32)
+    if zero_rows is not None:
+        mask = (rng.random(lead + (seq,)) < 0.6).astype(np.float32)
+        for row in zero_rows:
+            mask[row] = 0.0
+    return {"tokens": tok[..., :-1], "targets": tok[..., 1:], "mask": mask}
 
 
 def _torch_batch(b):
@@ -122,19 +133,41 @@ def _unsharded(arch, params, batch, n_steps):
     return out, params
 
 
-def _ref_losses(arch, params, batch, n_steps):
-    """repro's unsharded per-worker step, vmapped over the workers."""
+@functools.lru_cache(maxsize=None)
+def _ref_step(arch, nmb):
+    """repro's unsharded per-worker step, vmapped over the workers and
+    jitted once for the module (its compiles are the cases' largest
+    cost): (optimizer, step). With ``nmb`` microbatches (rows [i B / n,
+    (i + 1) B / n)) the gradients are their mean and the loss the last
+    one's, as ``repro``'s ``build_train_step`` accumulates."""
     jm = jget_model(JCONFIGS[arch].reduced())
     opt = JAdamW(lr=LR)
-    stacked = jax.tree.map(lambda x: jnp.stack([x] * K), params)
-    st = jax.vmap(opt.init)(stacked)
+    value_and_grad = jax.value_and_grad(jm.loss, has_aux=True)
+
+    def grad(p, b):
+        if nmb == 1:
+            return value_and_grad(p, b)
+        rows = next(iter(b.values())).shape[0] // nmb
+        outs = [value_and_grad(p, {k: v[i * rows:(i + 1) * rows]
+                                   for k, v in b.items()})
+                for i in range(nmb)]
+        g = jax.tree.map(lambda *gs: sum(gs) / nmb,
+                         *[g for _, g in outs])
+        return outs[-1][0], g
 
     @jax.jit
     def step(p, s, b):
-        (_, m), g = jax.vmap(jax.value_and_grad(jm.loss, has_aux=True))(
-            p, b)
+        (_, m), g = jax.vmap(grad)(p, b)
         p, s = jax.vmap(opt.update)(g, s, p)
         return p, s, m["loss"]
+    return opt, step
+
+
+def _ref_losses(arch, params, batch, n_steps, nmb=1):
+    """``_ref_step``'s losses over ``n_steps`` from ``params``."""
+    opt, step = _ref_step(arch, nmb)
+    stacked = jax.tree.map(lambda x: jnp.stack([x] * K), params)
+    st = jax.vmap(opt.init)(stacked)
     out = []
     for _ in range(n_steps):
         stacked, st, loss = step(stacked, st, batch)
@@ -162,6 +195,35 @@ def test_train_step_equals_reference_and_unsharded(mesh):
         np.testing.assert_allclose(out["losses"], want, rtol=1e-5,
                                    atol=1e-5)
     assert out["losses"][-1] < out["losses"][0]
+
+
+@pytest.mark.parametrize("arch,nmb,rows", [("internlm2-1.8b", 1, 2),
+                                           ("internlm2-1.8b", 2, 4),
+                                           ("mamba2-130m", 1, 4)],
+                         ids=["internlm2", "internlm2_two_microbatches",
+                              "mamba2"])
+def test_random_mask_losses_equal_reference(mesh, arch, nmb, rows):
+    """The row-only step under a ragged mask: each rank's loss is its
+    rows' masked sum over the worker's (micro)batch's mask sum, so the
+    worker's loss is the reference's one masked mean, not a mean of the
+    ranks' means (the SSM's loss too: its rows' scans are whole). Some
+    rows, and so some ranks' whole (micro)batch rows, are all zero.
+    internlm2-1.8b's single microbatch takes the first test's batch
+    shape, so the reference's compile is shared."""
+    cfg = get_config(arch).reduced()
+    plan = dataclasses.replace(make_plan(cfg, SHAPE, AMAP),
+                               microbatches=nmb)
+    assert plan.diloco_axis == "data" and plan.batch_axes == ("model",)
+    jparams, params = _ref_params(arch)
+    b = _batch(cfg, (K, rows), seed=3,
+               zero_rows=[(0, 1), (1, rows - 2), (3, 0)])
+    res = mesh.call(fr.train, arch, plan, params, _torch_batch(b), 2, LR,
+                    "gloo")
+    ref = _ref_losses(arch, jparams, {k: jnp.asarray(v)
+                                      for k, v in b.items()}, 2, nmb)
+    for r, out in enumerate(res):
+        np.testing.assert_allclose(out["losses"], ref[mesh.coords(r)[
+            "data"]], rtol=1e-4, atol=1e-4, err_msg=f"rank {r}")
 
 
 @pytest.mark.parametrize("plan", [TP, FSDP_2D], ids=["tp", "fsdp_2d"])

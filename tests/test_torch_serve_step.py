@@ -17,7 +17,9 @@ decode steps:
   * dbrx-132b: an MoE under the sequence split (full capacity);
   * phi-3-vision-4.2b: the frontend joined before the step, KV heads
     over 'model';
-  * seamless-m4t-medium: the self and cross caches by heads;
+  * seamless-m4t-medium: the self and cross caches by heads; with 2 KV
+    heads (not dividing 'model') both by sequence, the prefill's split
+    over a 41-frame source in the 48-cell cross cache, 14 decode steps;
   * mamba2-130m, zamba2-2.7b: SSM states by heads, conv rings by
     channels, zamba2's shared-attention KV by heads.
 
@@ -25,7 +27,7 @@ Every case: greedy tokens equal ``repro``'s; logits within 1e-4 (the
 families' parity tolerance) and the same on every rank; every cache
 leaf, assembled from the ranks' blocks by ``repro``'s specs, within 1e-4
 of ``repro``'s cache, each rank holding exactly ``local_shape`` of its
-spec. An enc-dec whose heads do not divide 'model' is refused.
+spec.
 """
 import dataclasses
 
@@ -81,10 +83,9 @@ def _batch(cfg, seed):
     return out
 
 
-def _reference(arch, batch):
-    """repro's prefill and greedy decode: per step the logits and the
-    tokens, and the final cache."""
-    cfg = JCONFIGS[arch].reduced()
+def _reference(cfg, batch, n_decode=N_DECODE):
+    """repro's prefill and greedy decode of ``cfg`` (a reduced repro
+    config): per step the logits and the tokens, and the final cache."""
     jm = jget_model(cfg)
     params, _ = jm.init(jax.random.PRNGKey(0))
     cache = jm.init_cache(B, JShape("s", "decode", MAX_LEN, B))
@@ -92,7 +93,7 @@ def _reference(arch, batch):
         params, {k: jnp.asarray(v) for k, v in batch.items()}, cache)
     decode = jax.jit(jm.decode)
     out = []
-    for i in range(N_DECODE + 1):
+    for i in range(n_decode + 1):
         if i:
             logits, cache = decode(params, tok, cache)
         tok = jnp.argmax(logits[:, :cfg.vocab], -1).astype(jnp.int32)[:,
@@ -125,15 +126,19 @@ def _port_leaves(tree, path=()):
         v, path + (k,)).items()}
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_sharded_serve_equals_reference(mesh, arch):
-    cfg = get_config(arch).reduced()
-    batch = _batch(cfg, len(arch))
-    jparams, ref, jcache, jm = _reference(arch, batch)
+def _serve_and_check(mesh, cfg, jcfg, batch, n_decode=N_DECODE):
+    """Serve ``batch`` on the ranks and against ``repro``: tokens equal,
+    logits within TOL and the same on every rank, every cache leaf
+    assembled from the ranks' blocks by ``repro``'s specs of a fresh
+    cache (a leaf's blocks laid as the port lays them) within TOL of
+    ``repro``'s cache. ``repro``'s enc-dec cache ends with the source's
+    cells of cross K/V: the port's leaf matches them and is zero past
+    them. Returns the layouts' mesh axes."""
+    jparams, ref, jcache, jm = _reference(jcfg, batch, n_decode)
     params = from_jax_params(jax.tree.map(np.asarray, jparams), "cpu")
     res = mesh.call(sr.serve, cfg, params,
                     {k: torch.from_numpy(v) for k, v in batch.items()},
-                    N_DECODE, MAX_LEN)
+                    n_decode, MAX_LEN)
     for i, (want, tok) in enumerate(ref):
         for out in res:
             assert torch.equal(out["logits"][i], res[0]["logits"][i])
@@ -141,11 +146,10 @@ def test_sharded_serve_equals_reference(mesh, arch):
                                           err_msg=f"step {i}")
         np.testing.assert_allclose(res[0]["logits"][i].numpy(), want,
                                    rtol=TOL, atol=TOL, err_msg=f"step {i}")
-    # the cache: repro's leaves, laid out by repro's specs
-    jplan = jmake_plan(JCONFIGS[arch].reduced(),
-                       JShape("s", "decode", MAX_LEN, B), AMAP)
+    shape = JShape("s", "decode", MAX_LEN, B)
     specs, _ = jax.tree_util.tree_flatten_with_path(
-        jm.cache_pspecs(jcache, jplan, AMAP),
+        jm.cache_pspecs(jm.init_cache(B, shape), jmake_plan(jcfg, shape,
+                                                            AMAP), AMAP),
         is_leaf=lambda x: isinstance(x, P))
     leaves = dict(jax.tree_util.tree_flatten_with_path(jcache)[0])
     ranks = [_port_leaves(out["cache"]) for out in res]
@@ -153,19 +157,50 @@ def test_sharded_serve_equals_reference(mesh, arch):
     for path, spec in specs:
         want = np.asarray(leaves[path], np.float32)
         key, spec = tuple(_key(k) for k in path), tuple(spec)
-        full = torch.full(want.shape, float("nan"))
+        whole = list(want.shape)
+        if key[0].startswith("cross"):           # (L, B, S, Hk, dh)
+            whole[2] = MAX_LEN
+        full = torch.full(whole, float("nan"))
         for r, got in enumerate(ranks):
             assert tuple(got[key].shape) == partition.local_shape(
-                want.shape, spec, AMAP), key
+                whole, spec, AMAP), key
             partition.local_block(full, spec, AMAP,
                                   mesh.coords(r)).copy_(got[key].float())
-        np.testing.assert_allclose(full.numpy(), want, rtol=TOL, atol=TOL,
+        n = want.shape[2] if key[0].startswith("cross") else None
+        np.testing.assert_allclose(full[:, :, :n].numpy() if n else
+                                   full.numpy(), want, rtol=TOL, atol=TOL,
                                    err_msg=str(key))
+        if n:
+            assert torch.equal(full[:, :, n:], torch.zeros_like(
+                full[:, :, n:])), key
         sharded.update(e for e in spec if e)
+    return sharded
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sharded_serve_equals_reference(mesh, arch):
+    cfg = get_config(arch).reduced()
+    sharded = _serve_and_check(mesh, cfg, JCONFIGS[arch].reduced(),
+                               _batch(cfg, len(arch)))
     assert "model" in sharded and "data" in sharded
 
 
-def test_encdec_sequence_split_raises(mesh):
-    cfg = dataclasses.replace(get_config("seamless-m4t-medium").reduced(),
-                              n_kv_heads=2)
-    assert mesh.call(sr.encdec_split_raises, cfg) == [True] * mesh.size
+ENCDEC_SRC, ENCDEC_DECODE = 41, 14
+
+
+def test_encdec_sequence_split_equals_reference(mesh):
+    """An enc-dec whose 2 KV heads do not divide 'model' (4): the
+    prefill splits the 41 source frames 10/10/10/11 over the ranks
+    while the cross cache's 48 cells lie in blocks of 12 (rank 3 holds
+    5 live cells), the self cache (48 cells, blocks of 12) crosses a
+    block boundary while decoding, and every rank's self block but the
+    first is empty at the BOS token."""
+    arch = "seamless-m4t-medium"
+    cfg = dataclasses.replace(get_config(arch).reduced(), n_kv_heads=2)
+    jcfg = dataclasses.replace(JCONFIGS[arch].reduced(), n_kv_heads=2)
+    rng = np.random.default_rng(7)
+    batch = {"src_embeds": rng.normal(size=(B, ENCDEC_SRC, cfg.d_model))
+             .astype(np.float32),
+             "bos": rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32)}
+    sharded = _serve_and_check(mesh, cfg, jcfg, batch, ENCDEC_DECODE)
+    assert "model" in sharded and "data" in sharded
