@@ -46,6 +46,7 @@ from typing import Any, NamedTuple, Sequence
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core import compression
 from repro_torch.core.ring_reduce import (RingConfig, RingSyncOp,
                                           ring_all_reduce, ring_wire_bytes)
@@ -193,12 +194,13 @@ def _apply_outer(reduced_pg_flat, params, state: OuterState,
                  cfg: DiLoCoConfig, new_residual, a_flat):
     """Flat-space outer Nesterov step; the new anchor and momentum trees
     are views of the new flat buffers, the new params a cast of them."""
-    eng = SyncEngine.for_tree(state.anchor)
-    m_flat = eng.flatten(state.opt.momentum)
-    new_a_flat, new_m_flat = cfg.outer_opt.update_flat(
-        reduced_pg_flat, m_flat, a_flat)
+    with spans.span("outer.apply", a_flat.device):
+        eng = SyncEngine.for_tree(state.anchor)
+        m_flat = eng.flatten(state.opt.momentum)
+        new_a_flat, new_m_flat = cfg.outer_opt.update_flat(
+            reduced_pg_flat, m_flat, a_flat)
+        new_params = eng.unflatten(new_a_flat, like=params)
     f32 = torch.float32
-    new_params = eng.unflatten(new_a_flat, like=params)
     return new_params, OuterState(
         eng.unflatten(new_a_flat, dtype=f32),
         NesterovState(eng.unflatten(new_m_flat, dtype=f32)),

@@ -47,6 +47,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import diloco as dl
 from repro_torch.core import ring_reduce as rr
 from repro_torch.core import topology
@@ -204,12 +205,17 @@ class ElasticTrainer:
         for s in np.flatnonzero(np.asarray(active) > 0).tolist():
             p = tree_map(lambda x: x[s].detach().requires_grad_(True), params)
             b = {key: v[s] for key, v in batch.items()}
-            loss, metrics = self.model.loss(p, b)
-            loss.backward()
+            with spans.span("train.forward", self.device):
+                loss, metrics = self.model.loss(p, b)
+            with spans.span("train.backward", self.device):
+                loss.backward()
             grads = tree_map(lambda x: x.grad, p)
-            self.optimizer.update_(
-                grads, AdamWState(opt_state.step[s], _slot(opt_state.m, s),
-                                  _slot(opt_state.v, s)), _slot(params, s))
+            with spans.span("train.adamw", self.device):
+                self.optimizer.update_(
+                    grads, AdamWState(opt_state.step[s],
+                                      _slot(opt_state.m, s),
+                                      _slot(opt_state.v, s)),
+                    _slot(params, s))
             losses[s] = metrics["loss"].detach()
             if "lb_loss" in metrics:
                 self._lb_losses[s] = metrics["lb_loss"].detach()
@@ -279,7 +285,7 @@ class ElasticTrainer:
     def _set_params(self, new_params) -> None:
         """Write the outer step's (stacked, broadcast) parameters into
         every slot, in place."""
-        with torch.no_grad():
+        with torch.no_grad(), spans.span("outer.apply", self.device):
             for dst, src in zip(leaves(self.params), leaves(new_params)):
                 dst.copy_(src)
 
@@ -288,6 +294,8 @@ class ElasticTrainer:
         h = inner_steps or self.cfg.diloco.inner_steps
         global_step = int(self.outer.outer_step) * h
         for t in range(n_outer_steps):
+            # spans (repro_torch.spans) record while a profiler runs
+            spans_on = spans.follow_profiler()
             plan = self.sim.begin_outer_step(t)
             # a participant of the sync in flight left: the partial
             # reduction is torn; re-reduce over the survivors BEFORE the
@@ -355,6 +363,7 @@ class ElasticTrainer:
                 del new_params
             self._sync()
             t2 = time.perf_counter()
+            span_rec = spans.collect() if spans_on else None
 
             live_w = np.asarray(weights) > 0
             mask = torch.as_tensor(live_w, device=self.device)
@@ -370,6 +379,8 @@ class ElasticTrainer:
                    "inner_s": t1 - t0, "sync_s": t2 - t1,
                    "inner_chunk_s": self._chunk_s,
                    "inner_hop_s": self._hop_s}
+            if span_rec is not None:
+                rec["spans"] = span_rec
             if self.model.cfg.moe is not None:
                 # the last inner step's load-balance loss, beside its loss
                 rec["lb_loss"] = (float(self._lb_losses[mask].mean())

@@ -134,7 +134,6 @@ def test_port_imports_neither_jax_nor_repro(tmp_path):
             "repro_torch.serving.engine, repro_torch.serving.paging, "
             "repro_torch.kernels.flash_decode, "
             "repro_torch.convert, repro_torch.launch.train, "
-            "repro_torch.launch.profile_train, "
             "repro_torch.train.loop, repro_torch.kernels.ref, "
             "repro_torch.kernels.int8_quant, repro_torch.kernels.ops, "
             "repro_torch.core.sync_engine, repro_torch.core.ring_reduce, "
